@@ -1,0 +1,78 @@
+"""MapFilterProject: the fused row-level operator.
+
+Counterpart of materialize_tpu/expr/linear.py (`MapFilterProject.apply`).
+Appended map expressions, a conjunction of predicates, then a projection,
+evaluated columnwise over a batch. Filtered rows keep their slot with
+diff 0; erroring rows go to a parallel error batch instead of trapping.
+The MFP builder and composition belong to the dataflow slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..repr.batch import PAD_TIME, UpdateBatch
+from ..repr.hashing import PAD_HASH
+from .scalar import _truth, eval_expr3, force_sentinel
+
+
+def _pad(mask: torch.Tensor, col: torch.Tensor, fill) -> torch.Tensor:
+    return torch.where(mask, col, torch.full_like(col, fill))
+
+
+@dataclass(frozen=True)
+class MapFilterProject:
+    input_arity: int
+    map_exprs: tuple = ()  # appended columns, may reference earlier maps
+    predicates: tuple = ()  # conjunction; references input+map columns
+    projection: tuple | None = None  # output col indices; None = identity
+
+    def apply(self, batch: UpdateBatch) -> tuple[UpdateBatch, UpdateBatch]:
+        """Evaluate on a batch; returns (oks, errs).
+
+        errs has vals=(err_code,) and inherits time/diff from the failing
+        rows; rows without error are inert there (diff 0).
+        """
+        cols = list(batch.vals)
+        n = batch.cap
+        dev = batch.device
+        map_err = torch.zeros((n,), dtype=torch.int32, device=dev)
+        for e in self.map_exprs:
+            v, nv, ev = eval_expr3(e, cols, n)
+            map_err = torch.maximum(map_err, ev)
+            cols.append(force_sentinel(v, nv))
+
+        keep = torch.ones((n,), dtype=torch.bool, device=dev)
+        pred_err = torch.zeros((n,), dtype=torch.int32, device=dev)
+        for p in self.predicates:
+            v, nv, ev = eval_expr3(p, cols, n)
+            pred_err = torch.maximum(pred_err, ev)
+            # WHERE keeps TRUE rows: NULL filters like FALSE; an erroring
+            # predicate does not filter (the row errors instead)
+            keep = keep & ((_truth(v) & ~nv) | (ev != 0))
+
+        # a row only errors if it would otherwise survive the filters
+        err = torch.where(keep, torch.maximum(map_err, pred_err), 0)
+        live = batch.live
+        err = torch.where(live, err, 0)  # padding can't error
+        ok_mask = keep & (err == 0)
+
+        out_cols = cols if self.projection is None else [cols[i] for i in self.projection]
+        oks = UpdateBatch(
+            hashes=_pad(ok_mask & live, batch.hashes, PAD_HASH),
+            keys=(),
+            vals=tuple(out_cols),
+            times=_pad(ok_mask & live, batch.times, PAD_TIME),
+            diffs=_pad(ok_mask, batch.diffs, 0),
+        )
+        err_mask = err != 0
+        errs = UpdateBatch(
+            hashes=torch.where(err_mask, torch.zeros_like(batch.hashes), PAD_HASH),
+            keys=(),
+            vals=(err.to(torch.int64),),
+            times=_pad(err_mask, batch.times, PAD_TIME),
+            diffs=_pad(err_mask, batch.diffs, 0),
+        )
+        return oks, errs
