@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-The main path is the single-GPU TPC-H Q3 maintenance tick
-(materialize_tpu_torch/models/fused_q3.py) at scale factor 1. Phases, each
-of which fails the run on any error:
+Two paths run at TPC-H scale factor 1: the single-GPU Q3 maintenance tick
+(materialize_tpu_torch/models/fused_q3.py), and the same tick sharded over
+an in-process mesh of 4 workers on the card's devices (all 4 on `cuda:0` on
+a machine with one card), whose exchange runs the `route_dest` and
+`bucket_rank` kernels. Phases, each of which fails the run on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels from materialize_tpu_torch/csrc/;
@@ -20,7 +22,15 @@ of which fails the run on any error:
    equality), and timed with CUDA events beside the plain version and, where
    one PyTorch call computes the same function, that call (`library_ms`);
 6. the maintained view must equal the brute-force `q3_oracle` over the
-   generator's host mirrors, with no error rows and no overflow.
+   generator's host mirrors, with no error rows and no overflow;
+7. sharded Q3: hydrate on one device, partition the state over the 4
+   workers by `route_dest`, one warm-up tick with the customer retraction,
+   then the churn ticks, timed, on the mesh; the same overflow ladder; the
+   launch counters are zeroed just before the timed ticks and read just
+   after, and all six kernels must have launched; the union of the
+   workers' views must equal `q3_oracle`. Every kernel is then replayed
+   against its plain version at its largest call of this phase, and
+   `route_dest` and `bucket_rank` are timed there as in phase 5.
 
 It prints the kernel table as one JSON line, then the device line as the
 last line. It exits non-zero, printing no result, without a CUDA device.
@@ -28,6 +38,7 @@ last line. It exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,13 +55,20 @@ REPLACES = {
     "multi_take": "materialize_tpu/ops/kernels/permute.py:61",
     "probe": "materialize_tpu/ops/kernels/probe.py:69",
     "probe2": "materialize_tpu/ops/kernels/probe.py:97",
+    "route_dest": "materialize_tpu/ops/kernels/route.py:45",
+    "bucket_rank": "materialize_tpu/ops/kernels/route.py:77",
 }
 SOURCES = {
     "run_sum": "materialize_tpu_torch/csrc/run_sum.cu",
     "multi_take": "materialize_tpu_torch/csrc/multi_take.cu",
     "probe": "materialize_tpu_torch/csrc/probe.cu",
     "probe2": "materialize_tpu_torch/csrc/probe.cu",
+    "route_dest": "materialize_tpu_torch/csrc/route.cu",
+    "bucket_rank": "materialize_tpu_torch/csrc/route.cu",
 }
+N_WORKERS = 4
+# the kernels of the single-GPU tick; the sharded tick adds route_dest and bucket_rank
+SINGLE_PATH = ("run_sum", "multi_take", "probe", "probe2")
 
 
 def phase(msg: str) -> None:
@@ -88,12 +106,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Mean device time of the CUDA kernels that fn() launches, by the
+    profiler: the kernels' own time, without the gaps in which the host
+    issues the next call (which `time_ms` includes when a call is short)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 # -- phase 3: edge cases ------------------------------------------------------
 
 
 def edge_cases(device) -> int:
     """Every kernel against its plain version at the CPU tests' edge cases."""
-    from materialize_tpu_torch.ops.kernels import permute, probe, segsum
+    from materialize_tpu_torch.ops.kernels import permute, probe, route, segsum
 
     rng = np.random.default_rng(0)
 
@@ -149,10 +185,32 @@ def edge_cases(device) -> int:
     rs[0] = True
     col = t(rng.integers(-(1 << 62), 1 << 62, n))
     check("run_sum", segsum.run_sum(t(rs), (col,)), segsum.plain_run_sum(t(rs), (col,)))
+
+    # route_dest over u32 hashes with 0, 2^31 and PAD_HASH; bucket_rank over
+    # sorted, all-dead, one-run and unsorted keys
+    for n in (1, 2, 7, 5000, 3_000_000):
+        h = rng.integers(0, 1 << 32, n)
+        h[: min(n, 3)] = np.array([0, 1 << 31, pad])[: min(n, 3)]
+        for n_dest in (1, 3, 4, 8):
+            check("route_dest", route.route_dest(t(h), n_dest),
+                  route.plain_route_dest(t(h), n_dest))
+            keys = {
+                "sorted": np.sort(rng.integers(0, n_dest + 1, n)),
+                "all_dead": np.full(n, n_dest),
+                "one_run": np.zeros(n),
+                "unsorted": rng.integers(0, n_dest + 1, n),
+            }
+            for k in keys.values():
+                k = t(k.astype(np.int32))
+                check("bucket_rank", route.bucket_rank(k), route.plain_bucket_rank(k))
     return n_checks
 
 
 # -- phase 4: Q3 ----------------------------------------------------------------
+
+
+def _per_tick(gen, frac: float, scale: int) -> int:
+    return (int(gen.n_orders * frac * 2 * 5.5) + 64) * scale
 
 
 def q3_caps(gen, frac: float, scale: int):
@@ -162,7 +220,7 @@ def q3_caps(gen, frac: float, scale: int):
 
     n_orders = gen.n_orders
     n_li = len(gen._lineitem_store[0])
-    per_tick = (int(n_orders * frac * 2 * 5.5) + 64) * scale
+    per_tick = _per_tick(gen, frac, scale)
     return Q3Caps(
         cust=bucket_cap(max(gen.n_customer // 4, 64) * scale),
         orders=bucket_cap(max(int(n_orders * 0.55), 64) * scale),
@@ -271,12 +329,128 @@ def run_q3(device, sf: float, ticks: int, frac: float, n_cust_retract: int,
         "timed_updates": timed, "elapsed_s": elapsed, "ticks": ticks,
         "updates_per_s": timed / elapsed, "launches": launches, "samples": samples,
         "host_syncs_per_tick": syncs / ticks,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "profile": device_breakdown(prof, prof_wall),
+    }
+
+
+def run_sharded(sf: float, ticks: int, frac: float, n_cust_retract: int, seed: int = 0,
+                scale: int = 1, max_rescale: int = 3) -> dict:
+    """Q3 on a mesh of N_WORKERS workers: hydrate on one device, partition
+    the state by route_dest, one warm-up tick with a customer retraction,
+    `ticks` timed churn ticks, then profiled ones. Reruns with doubled
+    capacities (buckets too) on any overflow."""
+    from materialize_tpu_torch.models import fused_q3 as Q
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.ops.reduce import HOST_SYNCS
+    from materialize_tpu_torch.parallel.devicemesh import note_overflow_retry
+    from materialize_tpu_torch.parallel.mesh import make_mesh
+    from materialize_tpu_torch.repr.batch import UpdateBatch, bucket_cap
+    from materialize_tpu_torch.storage import TpchGenerator
+
+    def retry(why):
+        if max_rescale <= 0:
+            raise RuntimeError(f"sharded: {why} persists at the largest capacities")
+        note_overflow_retry()
+        phase(f"sharded: {why} at scale {scale}; rerunning with doubled capacities")
+        return run_sharded(sf, ticks, frac, n_cust_retract, seed, scale * 2, max_rescale - 1)
+
+    mesh = make_mesh(N_WORKERS)
+    n = len(mesh)
+    phase(f"sharded: mesh {[str(d) for d in mesh]}; generating TPC-H sf={sf} (scale {scale})")
+    torch.cuda.reset_peak_memory_stats()
+    gen = TpchGenerator(sf=sf, seed=seed, val_dtype=np.int32, device=mesh[0])
+    init = gen.initial_batches(1)
+    one = q3_caps(gen, frac, scale)
+    caps = dataclasses.replace(
+        one, cust=one.cust // n, orders=one.orders // n, lineitem=one.lineitem // n,
+        delta=one.delta // n, join_out=one.join_out // n, groups=one.groups // n,
+        bucket=bucket_cap(2 * _per_tick(gen, frac, scale) // (n * n)),
+    )
+    phase(f"sharded: per-worker caps {caps}")
+    t0 = time.perf_counter()
+    try:
+        single = Q.hydrate(Q.Q3State.empty(one, device=mesh[0]), init["customer"],
+                           init["orders"], init["lineitem"], 1)
+        states = Q.shard_state(single, caps, mesh)
+    except OverflowError:
+        return retry("hydration overflow")
+    del single, init
+    torch.cuda.synchronize()
+    hydrate_s = time.perf_counter() - t0
+    phase(f"sharded: hydrated and partitioned in {hydrate_s:.2f}s")
+
+    cc = tuple(c[:n_cust_retract].astype(np.int32) for c in gen._customer)
+    d_cust = UpdateBatch.build((), cc, np.full(n_cust_retract, 2),
+                               -np.ones(n_cust_retract, dtype=np.int64), device=mesh[0])
+    gen._customer = tuple(c[n_cust_retract:] for c in gen._customer)
+    empty_c = Q.split_batch(UpdateBatch.empty(8 * n, (), (torch.int32,) * 3, device=mesh[0]),
+                            mesh)
+    refreshes, n_updates = [], []
+    for tk in range(2, 3 + ticks + PROFILED_TICKS):
+        r = gen.refresh(tk, frac=frac)
+        refreshes.append((tk, Q.split_batch(r["orders"], mesh),
+                          Q.split_batch(r["lineitem"], mesh)))
+        n_updates.append(int(r["orders"].count()) + int(r["lineitem"].count()))
+    torch.cuda.synchronize()
+    phase(f"sharded: {len(refreshes)} refresh ticks generated and split")
+
+    flags, errs_live = [], []
+
+    def tick(step, d_custs, tk, d_ords, d_lis):
+        nonlocal states
+        res = step(states, d_custs, d_ords, d_lis, tk)
+        states = [r[0] for r in res]
+        flags.extend(r[3] for r in res)
+        errs_live.extend(r[2].count().to(mesh[0]) for r in res)
+
+    with_cust = Q.q3_tick_sharded(mesh, caps, with_cust=True)
+    churn = Q.q3_tick_sharded(mesh, caps, with_cust=False)
+    tick(with_cust, Q.split_batch(d_cust, mesh), *refreshes[0])
+    torch.cuda.synchronize()
+    phase("sharded: warm-up tick done")
+
+    registry.reset_launches()
+    registry.SAMPLES = {}
+    syncs0 = HOST_SYNCS["lookup_widen"]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for tk, d_ords, d_lis in refreshes[1 : 1 + ticks]:
+        tick(churn, empty_c, tk, d_ords, d_lis)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(registry.LAUNCHES)
+    samples, registry.SAMPLES = registry.SAMPLES, None
+    syncs = HOST_SYNCS["lookup_widen"] - syncs0
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        for tk, d_ords, d_lis in refreshes[1 + ticks :]:
+            tick(churn, empty_c, tk, d_ords, d_lis)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t_prof
+    if bool(torch.cat([f.to(mesh[0]) for f in flags]).any()):
+        return retry("tick overflow")
+    n_errs = int(torch.stack(errs_live).sum())
+    if n_errs:
+        raise AssertionError(f"sharded: {n_errs} error rows in the ticks")
+    timed = sum(n_updates[1 : 1 + ticks])
+    return {
+        "gen": gen, "states": states, "caps": caps, "scale": scale,
+        "mesh": [str(d) for d in mesh],
+        "hydrate_s": hydrate_s, "timed_updates": timed, "elapsed_s": elapsed, "ticks": ticks,
+        "updates_per_s": timed / elapsed, "launches": launches, "samples": samples,
+        "host_syncs_per_tick": syncs / ticks,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "profile": device_breakdown(prof, prof_wall),
     }
 
 
 _OURS = {"scan_tile": "run_sum", "fix_tile": "run_sum", "take_kernel": "multi_take",
-         "probe2_kernel": "probe2", "probe_kernel": "probe"}
+         "probe2_kernel": "probe2", "probe_kernel": "probe", "route_kernel": "route_dest",
+         "tile_max": "bucket_rank", "apply_tile": "bucket_rank"}
 
 
 def device_breakdown(prof, wall_s: float) -> dict:
@@ -316,8 +490,17 @@ def _bytes(t) -> int:
 
 def replay(name: str, args: tuple):
     """(kernel fn, plain fn, library fn or None, bytes the function must move)."""
-    from materialize_tpu_torch.ops.kernels import permute, probe, segsum
+    from materialize_tpu_torch.ops.kernels import permute, probe, route, segsum
 
+    if name == "route_dest":
+        h, n_dest = args
+        return (lambda: route.route_dest(h, n_dest), lambda: route.plain_route_dest(h, n_dest),
+                lambda: torch.remainder(h, n_dest), _bytes(h) + h.numel() * 4)
+    if name == "bucket_rank":
+        (k,) = args
+        # no single PyTorch call ranks rows within runs
+        return (lambda: route.bucket_rank(k), lambda: route.plain_bucket_rank(k), None,
+                2 * _bytes(k))
     if name == "probe":
         a, q, side = args
         return (lambda: probe.probe(a, q, side), lambda: probe.plain_searchsorted(a, q, side),
@@ -355,30 +538,41 @@ def replay(name: str, args: tuple):
     raise KeyError(name)
 
 
-def kernel_table(samples: dict, launches: dict) -> list:
+def check_largest(name: str, samples: dict):
+    """Replay `name`'s largest call in `samples` against its plain version.
+    Returns (shape, replay(name, args), max_abs_err); raises if they differ."""
+    _size, shape, args = samples[name]["largest"]
+    fns = replay(name, args)
+    got, want = fns[0](), fns[1]()
+    torch.cuda.synchronize()
+    if not _equal(got, want):
+        raise AssertionError(f"kernel {name} differs from its plain version at {shape}")
+    if name in ("probe2", "route_dest"):  # yardsticks must compute the same function
+        if not torch.equal(fns[2]().to(want.dtype), want):
+            raise AssertionError(f"{name} library yardstick disagrees")
+    return shape, fns, _max_abs_err(got, want)
+
+
+def kernel_table(names, samples: dict, launches: dict) -> list:
+    """Each kernel's largest call in `samples`, replayed against its plain
+    version and timed."""
     rows = []
-    for name in ("run_sum", "multi_take", "probe", "probe2"):
-        _size, shape, args = samples[name]["largest"]
-        kern, plain, library, moved = replay(name, args)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if not _equal(got, want):
-            raise AssertionError(f"kernel {name} differs from its plain version at {shape}")
-        if name == "probe2":  # the packed-key yardstick must compute the same function
-            if not torch.equal(library(), want):
-                raise AssertionError("probe2 packed-key yardstick disagrees")
+    for name in names:
+        shape, (kern, plain, library, moved), err = check_largest(name, samples)
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": _max_abs_err(got, want),
+            "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(library) if library is not None else None,
+            "kernel_device_ms": kernel_ms(kern),
             "shape": list(shape),
         }
         rows.append(row)
-        phase(f"{name} at {shape}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms, library {row['library_ms']}")
+        phase(f"{name} at {shape}: {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f}), "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, "
+              f"library {row['library_ms']}")
     return rows
 
 
@@ -389,6 +583,7 @@ def main() -> int:
     from materialize_tpu_torch.models.fused_q3 import read_view
     from materialize_tpu_torch.models.tpch import q3_oracle
     from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.parallel.devicemesh import overflow_retries
 
     device = "cuda"
     name = torch.cuda.get_device_name(0)
@@ -413,22 +608,60 @@ def main() -> int:
     phase(f"Q3 sf=1: {q3['timed_updates']} updates in {q3['elapsed_s']:.4f}s over "
           f"{q3['ticks']} ticks = {q3['updates_per_s']:.1f} updates/s; "
           f"{q3['host_syncs_per_tick']} host syncs per tick; launches {launches}")
-    missing = [k for k in registry.KERNELS if launches[k] <= 0]
+    missing = [k for k in SINGLE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    for k in registry.KERNELS:
+    for k in SINGLE_PATH:
         shapes = sorted(samples[k]["shapes"].items(), key=lambda kv: -kv[1])
         print(f"#   {k} shapes in the timed ticks (shape: calls): {shapes[:12]}")
 
-    rows = kernel_table(samples, launches)
-    del samples
-
-    gen = q3["gen"]
-    view = read_view(q3["state"])
+    gen = q3.pop("gen")
+    view = read_view(q3.pop("state"))
     want = q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
     if view != want:
         raise AssertionError(f"view differs from q3_oracle: {len(view)} vs {len(want)} groups")
     phase(f"view equals q3_oracle: {len(view)} groups")
+    del gen, view, want
+    rows = kernel_table(SINGLE_PATH, samples, launches)
+    del samples  # so the sharded phase's peak memory is its own
+
+    sh = run_sharded(sf=1.0, ticks=5, frac=0.02, n_cust_retract=1000)
+    sh_launches, sh_samples = sh.pop("launches"), sh.pop("samples")
+    phase(f"sharded Q3 sf=1 on {sh['mesh']}: {sh['timed_updates']} updates in "
+          f"{sh['elapsed_s']:.4f}s over {sh['ticks']} ticks = {sh['updates_per_s']:.1f} "
+          f"updates/s; {sh['host_syncs_per_tick']} host syncs per tick (all workers); "
+          f"launches {sh_launches}")
+    missing = [k for k in registry.KERNELS if sh_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sharded path: {missing}")
+    for k in ("route_dest", "bucket_rank"):
+        shapes = sorted(sh_samples[k]["shapes"].items(), key=lambda kv: -kv[1])
+        print(f"#   {k} shapes in the sharded timed ticks (shape: calls): {shapes}")
+    gen = sh.pop("gen")
+    want = q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
+    view: dict = {}
+    for state in sh.pop("states"):
+        part = read_view(state)
+        if set(part) & set(view):
+            raise AssertionError("a group is owned by more than one worker")
+        view.update(part)
+    if view != want:
+        raise AssertionError(f"sharded view differs from q3_oracle: {len(view)} vs "
+                             f"{len(want)} groups")
+    phase(f"sharded view (union of {len(sh['mesh'])} workers) equals q3_oracle: "
+          f"{len(view)} groups")
+    del gen, view, want
+
+    # the single path's kernels also at their largest calls of the sharded
+    # phase (per-worker shapes); the route kernels run only there
+    for row in rows:
+        shape, _fns, err = check_largest(row["name"], sh_samples)
+        row["sharded_shape"], row["sharded_max_abs_err"] = list(shape), err
+        phase(f"{row['name']} equals its plain version at the sharded phase's {shape}")
+    rows += kernel_table(("route_dest", "bucket_rank"), sh_samples, sh_launches)
+    for row in rows:
+        row["launches_sharded"] = sh_launches[row["name"]]
+    del sh_samples
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],
@@ -436,8 +669,17 @@ def main() -> int:
         "updates_per_s": q3["updates_per_s"], "hydrate_s": q3["hydrate_s"],
         "host_syncs_per_tick": q3["host_syncs_per_tick"],
         "hydrate_launches": q3["hydrate_launches"],
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": q3["peak_mem_gib"],
         "profile": q3["profile"],
+    }}))
+    print(json.dumps({"q3_sharded": {
+        "sf": 1.0, "workers": sh["mesh"], "ticks": sh["ticks"], "frac": 0.02,
+        "scale": sh["scale"], "caps_per_worker": dataclasses.asdict(sh["caps"]),
+        "updates": sh["timed_updates"], "seconds": sh["elapsed_s"],
+        "updates_per_s": sh["updates_per_s"], "hydrate_s": sh["hydrate_s"],
+        "host_syncs_per_tick": sh["host_syncs_per_tick"], "peak_mem_gib": sh["peak_mem_gib"],
+        "overflow_retries": overflow_retries(), "launches": sh_launches,
+        "profile": sh["profile"],
     }}))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -7,6 +7,10 @@ u32 as the JAX package stores them; `from_numpy` rebuilds a port object of
 the same structure as `template` from such a list (u32 columns widen to
 int64, every other column keeps its dtype). Neither imports JAX: the
 caller flattens the JAX side itself (`jax.tree_util.tree_leaves`).
+
+A mesh-sharded JAX state is one global pytree whose every leaf is split on
+axis 0 into equal parts, one per device; `split_leaves` cuts such leaves
+into one list per worker, and `join_leaves` puts per-worker lists back.
 """
 
 from __future__ import annotations
@@ -90,3 +94,20 @@ def from_numpy(template, arrays, device="cuda"):
             raise TypeError(f"leaf dtype {a.dtype} does not match the port's layout")
         tensors.append(torch.tensor(a.astype(np.int64) if u32 else a, device=device))
     return _rebuild(template, iter(tensors))
+
+
+def split_leaves(arrays, n: int) -> list[list[np.ndarray]]:
+    """Global leaves sharded on axis 0 -> one list of leaves per worker."""
+    out: list[list[np.ndarray]] = [[] for _ in range(n)]
+    for a in arrays:
+        a = np.asarray(a)
+        if a.shape[0] % n:
+            raise ValueError(f"a leaf of {a.shape[0]} rows does not split into {n} parts")
+        for w, part in enumerate(np.split(a, n)):
+            out[w].append(part)
+    return out
+
+
+def join_leaves(parts) -> list[np.ndarray]:
+    """One list of leaves per worker -> the global leaves (axis 0)."""
+    return [np.concatenate(ws) for ws in zip(*parts)]

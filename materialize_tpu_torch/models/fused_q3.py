@@ -1,18 +1,24 @@
-"""TPC-H Q3 incremental maintenance: one tick on one GPU.
+"""TPC-H Q3 incremental maintenance: one tick on one GPU, or mesh-sharded.
 
-Counterpart of materialize_tpu/models/fused_q3.py (`q3_tick` without its
-exchange branch, `q3_tick_single`, `hydrate`, `hydration_output`). One tick
-runs three MFP filters, the three delta-join paths through LSM-levelled
-arrangements, the revenue closure, the accumulable SUM reduce and the LSM
-inserts and merges. Capacities are static; overflow flags (bool tensors,
-read by the caller after the tick) replace resizing. The tick's only host
-reads are the probe-widening decisions of the accumulator lookups
-(ops/reduce.py, HOST_SYNCS).
+Counterpart of materialize_tpu/models/fused_q3.py (`q3_tick`,
+`q3_tick_single`, `q3_tick_sharded`, `q3_state_global`, `hydrate`,
+`hydration_output`). One tick runs three MFP filters, the three delta-join
+paths through LSM-levelled arrangements, the revenue closure, the
+accumulable SUM reduce and the LSM inserts and merges. Capacities are
+static; overflow flags (bool tensors, read by the caller after the tick)
+replace resizing. The tick's only host reads are the probe-widening
+decisions of the accumulator lookups (ops/reduce.py, HOST_SYNCS).
+
+On a worker mesh (parallel/mesh.py) every arrangement is hash-sharded by its
+key over the workers, and every stream whose key changes is exchanged to
+its key's owner (parallel/devicemesh/exchange.py) before it is joined,
+inserted or reduced: eight exchanges a tick with the customer path, six
+without.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from functools import partial
 
 import torch
@@ -27,7 +33,8 @@ from ..arrangement.lsm import (
 )
 from ..arrangement.spine import arrange_batch
 from ..expr import CallBinary, Column, Literal, MapFilterProject
-from ..ops.consolidate import compact_to, consolidate, merge_consolidate
+from ..ops.consolidate import compact_to, compact_where, consolidate, merge_consolidate
+from ..ops.kernels import route_dest
 from ..ops.join import join_against
 from ..ops.reduce import (
     AccumState,
@@ -37,6 +44,7 @@ from ..ops.reduce import (
     collision_errs,
     consolidate_accums,
 )
+from ..parallel.devicemesh.exchange import exchange, mesh_run
 from ..repr.batch import DIFF_DTYPE, PAD_TIME, UpdateBatch, bucket_cap, device_time_scalar
 from ..repr.hashing import PAD_HASH
 from .tpch import BUILDING, Q3_DATE
@@ -58,12 +66,13 @@ def level_caps(full: int, small: int, k: int = 3, ratio: int = RATIO) -> tuple:
 
 @dataclass(frozen=True)
 class Q3Caps:
-    """Static capacities (the JAX package's, less the mesh-only `bucket`)."""
+    """Static capacities (per worker on a mesh)."""
 
     cust: int = 1 << 14
     orders: int = 1 << 15
     lineitem: int = 1 << 16
-    delta: int = 1 << 10  # per-tick delta rows per input
+    delta: int = 1 << 10  # per-tick delta rows per input (before the exchange)
+    bucket: int = 1 << 9  # rows per destination of one exchange (mesh only)
     join_out: int = 1 << 12
     groups: int = 1 << 15
     levels: int = 3
@@ -134,14 +143,18 @@ def q3_tick(
     time: int,
     *,
     caps: Q3Caps,
+    comm=None,
     with_cust: bool = True,
 ):
     """One Q3 maintenance tick. Returns (state', out_delta, errs, overflow).
 
     Raw deltas carry full table schemas. `time` (a Python int) doubles as
     the LSM merge schedule counter, so ticks should be consecutive integers.
-    `with_cust=False` leaves the customer delta path out (TPC-H RF1/RF2
-    never touch customer). `overflow` is a bool tensor of shape (1,).
+    On a mesh, `comm` is this worker's `WorkerComm`, each worker feeds its own
+    slice of the deltas and rows are routed by key hash to one of the
+    `comm.size` workers; with `comm` None the tick runs alone. `with_cust=False` leaves the customer delta path
+    out (TPC-H RF1/RF2 never touch customer). `overflow` is a bool tensor of
+    shape (1,).
     """
     time = int(time)
     over = torch.zeros((), dtype=torch.bool, device=d_ord.device)
@@ -151,14 +164,24 @@ def q3_tick(
         nonlocal over
         over = over | flag
 
+    def maybe_exchange(batch: UpdateBatch) -> UpdateBatch:
+        """Route to the hash owner, then re-canonicalize (rows from n senders
+        interleave). Off the mesh this is the identity: the input is already
+        consolidated by arrange_batch."""
+        if comm is None:
+            return batch
+        out, f = exchange(batch, comm, comm.size, caps.bucket)
+        track(f)
+        return consolidate(out, compact=False)
+
     fo, _ = _ORD_MFP.apply(d_ord)
     fl, _ = _LI_MFP.apply(d_li)
 
     # probe/insert streams skip the compaction: dead rows stay inert and
     # these batches are never capacity-shrunk
-    do_ck = arrange_batch(fo, (1,), compact=False)
-    do_ok = arrange_batch(fo, (0,), compact=False)
-    dl = arrange_batch(fl, (0,), compact=False)
+    do_ck = maybe_exchange(arrange_batch(fo, (1,), compact=False))
+    do_ok = maybe_exchange(arrange_batch(fo, (0,), compact=False))
+    dl = maybe_exchange(arrange_batch(fl, (0,), compact=False))
 
     # intermediate join streams: concat the K per-level outputs, compact the
     # live rows into one small buffer, and only then sort
@@ -172,11 +195,11 @@ def q3_tick(
     outs = []
     if with_cust:
         fc, _ = _CUST_MFP.apply(d_cust)
-        dc = arrange_batch(fc, (0,), compact=False)
+        dc = maybe_exchange(arrange_batch(fc, (0,), compact=False))
         # path 0: d customer ⋈ orders(ck) ⋈ lineitem(ok)
         s0s, f = lsm_join(dc, state.ord_by_ck, jcaps)
         track(f)
-        s0 = arrange_batch(squeeze(s0s), (1,), compact=False)  # key ok
+        s0 = maybe_exchange(arrange_batch(squeeze(s0s), (1,), compact=False))  # key ok
         s0s, f = lsm_join(s0, state.li_by_ok, jcaps)
         track(f)
         outs += s0s  # (ck | ok,ck,od,sp | lk,ep,dc) = canonical
@@ -188,7 +211,7 @@ def q3_tick(
     # path 1: d orders ⋈ customer(ck) ⋈ lineitem(ok)
     s1s, f = lsm_join(do_ck, new_cust, jcaps)
     track(f)
-    s1 = arrange_batch(squeeze(s1s), (0,), compact=False)  # key ok
+    s1 = maybe_exchange(arrange_batch(squeeze(s1s), (0,), compact=False))  # key ok
     s1s, f = lsm_join(s1, state.li_by_ok, jcaps)
     track(f)
     outs += [_project_cols(s, (4, 0, 1, 2, 3, 5, 6, 7)) for s in s1s]
@@ -200,7 +223,7 @@ def q3_tick(
     # path 2: d lineitem ⋈ orders(ok) ⋈ customer(ck)
     s2s, f = lsm_join(dl, new_ord_ok, jcaps)
     track(f)
-    s2 = arrange_batch(squeeze(s2s), (4,), compact=False)  # key ck
+    s2 = maybe_exchange(arrange_batch(squeeze(s2s), (4,), compact=False))  # key ck
     s2s, f = lsm_join(s2, new_cust, jcaps)
     track(f)
     outs += [_project_cols(s, (7, 3, 4, 5, 6, 0, 1, 2)) for s in s2s]
@@ -209,7 +232,7 @@ def q3_tick(
 
     # closure + reduce (the closure is elementwise: run it on the compacted rows)
     joined, errs1 = _CLOSURE.apply(squeeze(outs))
-    grouped = arrange_batch(joined, (0, 1, 2), compact=False)
+    grouped = maybe_exchange(arrange_batch(joined, (0, 1, 2), compact=False))
 
     raw_contrib, errs2 = _contributions(grouped, (0, 1, 2), _AGGS)
     contrib = consolidate_accums(raw_contrib)
@@ -233,6 +256,79 @@ def q3_tick(
 def q3_tick_single(caps: Q3Caps, with_cust: bool = True):
     """Single-GPU tick: (state, d_cust, d_ord, d_li, t) -> (state', out, errs, overflow)."""
     return partial(q3_tick, caps=caps, with_cust=with_cust)
+
+
+def q3_tick_sharded(mesh: tuple, caps: Q3Caps, with_cust: bool = True):
+    """Mesh-sharded tick over the workers of `mesh` (parallel/mesh.py).
+
+    Returns step(states, d_custs, d_ords, d_lis, t) -> one (state', out,
+    errs, overflow) per worker, where states and deltas hold one value per
+    worker (`q3_state_global`, `split_batch`) and `caps` are per worker.
+    """
+    n = len(mesh)
+
+    def tick(comm, state, d_cust, d_ord, d_li, time):
+        return q3_tick(state, d_cust, d_ord, d_li, time, caps=caps, comm=comm,
+                       with_cust=with_cust)
+
+    def step(states, d_custs, d_ords, d_lis, time):
+        return mesh_run(tick, mesh, states, d_custs, d_ords, d_lis, (int(time),) * n)
+
+    return step
+
+
+def q3_state_global(caps: Q3Caps, mesh: tuple) -> tuple:
+    """The empty state of a mesh: one `Q3State` per worker at the per-worker
+    `caps`, on its device (the JAX package's global state split on axis 0)."""
+    return tuple(Q3State.empty(caps, device=d) for d in mesh)
+
+
+def split_batch(batch: UpdateBatch, mesh: tuple) -> tuple:
+    """A global batch cut into len(mesh) equal contiguous parts, one per
+    worker, on its device (`shard_map`'s P(axis) split); the capacity is
+    first padded to a multiple of the worker count."""
+    n = len(mesh)
+    b = batch.with_capacity(-(-batch.cap // n) * n)
+    part = b.cap // n
+
+    def cut(w, c):
+        return c[w * part : (w + 1) * part].to(mesh[w])
+
+    return tuple(
+        UpdateBatch(cut(w, b.hashes), tuple(cut(w, k) for k in b.keys),
+                    tuple(cut(w, v) for v in b.vals), cut(w, b.times), cut(w, b.diffs))
+        for w in range(n)
+    )
+
+
+def shard_state(state: Q3State, caps: Q3Caps, mesh: tuple) -> tuple:
+    """Partition a one-device state (`hydrate`'s) over the workers of `mesh`.
+
+    Every live row of every LSM level and accumulator level goes to worker
+    `route_dest(hash, n)`, the owner the exchange routes its key to, into
+    the same level of an empty state at the per-worker `caps`. The filter is
+    stable, so every part stays sorted and consolidated. Raises
+    OverflowError when a worker's share exceeds its level's capacity.
+    """
+    n = len(mesh)
+    shards = q3_state_global(caps, mesh)
+
+    def split(lsm, empties: list) -> list:
+        levels: list = [[] for _ in range(n)]
+        for i, lvl in enumerate(lsm.levels):
+            dest = route_dest(lvl.hashes, n)
+            live = lvl.live
+            for w in range(n):
+                cap = empties[w].levels[i].cap
+                part, over = compact_where(lvl, live & (dest == w), cap, mesh[w])
+                if bool(over):
+                    raise OverflowError(f"a worker's share exceeds its level capacity {cap}")
+                levels[w].append(part)
+        return [type(lsm)(tuple(ls)) for ls in levels]
+
+    parts = {f.name: split(getattr(state, f.name), [getattr(s, f.name) for s in shards])
+             for f in fields(Q3State)}
+    return tuple(Q3State(**{k: v[w] for k, v in parts.items()}) for w in range(n))
 
 
 def hydrate(state: Q3State, init_cust, init_ord, init_li, time) -> Q3State:

@@ -5,10 +5,13 @@ batch by its (key hash, row hash, time) key, sums the diffs of equal-row
 runs with the `run_sum` kernel and moves the live rows to the front;
 `merge_consolidate` merges two batches already in canonical order in O(n)
 through a `probe2` interleave, with no sort; `compact_to` squeezes the live
-rows of a batch into a smaller capacity.
+rows of a batch into a smaller capacity (`compact_where`: any rows, of a
+batch or an accumulator table).
 """
 
 from __future__ import annotations
+
+from dataclasses import fields
 
 import torch
 
@@ -56,33 +59,48 @@ def _stable_partition_perm(live: torch.Tensor) -> torch.Tensor:
     return _inverse_perm(torch.where(live, front, back))
 
 
-def _scatter_to(col: torch.Tensor, idx: torch.Tensor, cap: int, fill) -> torch.Tensor:
+def scatter_to(col: torch.Tensor, idx: torch.Tensor, cap: int, fill) -> torch.Tensor:
     """A (cap,) column of `fill` with col[i] written at idx[i]; idx == cap drops."""
     out = torch.full((cap + 1,), fill, dtype=col.dtype, device=col.device)
     out[idx] = col
     return out[:cap]
 
 
+# the padding of a column, by its field name; every other column pads with 0
+_FILLS = {"hashes": PAD_HASH, "times": PAD_TIME}
+
+
+def compact_where(table, mask: torch.Tensor, cap: int, device=None):
+    """O(n) compaction of the rows of `table` (an UpdateBatch or AccumState)
+    where `mask` holds into a fresh one of capacity `cap`, on `device` (by
+    default the table's own).
+
+    Returns (table', overflow). Order among the kept rows is preserved; rows
+    beyond `cap` are dropped with the overflow flag (a bool tensor) raised.
+    """
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    over = pos[-1] + 1 > cap
+    # dropped rows, and kept rows past `cap`, land in the dropped slot `cap`
+    idx = torch.where(mask, pos, cap).clamp(max=cap)
+
+    def take(name, c):
+        out = scatter_to(c, idx, cap, _FILLS.get(name, 0))
+        return out if device is None else out.to(device)
+
+    parts = {}
+    for f in fields(table):
+        v = getattr(table, f.name)
+        parts[f.name] = tuple(take(f.name, c) for c in v) if isinstance(v, tuple) \
+            else take(f.name, v)
+    return type(table)(**parts), over
+
+
 def compact_to(batch: UpdateBatch, cap: int):
     """O(n) compaction of live rows into a fresh batch of capacity `cap`.
 
-    Returns (batch', overflow). Order among live rows is preserved; rows
-    beyond `cap` are dropped with the overflow flag (a bool tensor) raised.
+    Returns (batch', overflow), as `compact_where` with the live rows.
     """
-    live = batch.live
-    pos = torch.cumsum(live.to(torch.int64), 0) - 1
-    total = pos[-1] + 1
-    over = total > cap
-    # dead rows, and live rows past `cap`, land in the dropped slot `cap`
-    idx = torch.where(live, pos, cap).clamp(max=cap)
-    out = UpdateBatch(
-        _scatter_to(batch.hashes, idx, cap, PAD_HASH),
-        tuple(_scatter_to(k, idx, cap, 0) for k in batch.keys),
-        tuple(_scatter_to(v, idx, cap, 0) for v in batch.vals),
-        _scatter_to(batch.times, idx, cap, PAD_TIME),
-        _scatter_to(batch.diffs, idx, cap, 0),
-    )
-    return out, over
+    return compact_where(batch, batch.live, cap)
 
 
 def _masked(live: torch.Tensor, col: torch.Tensor, fill) -> torch.Tensor:

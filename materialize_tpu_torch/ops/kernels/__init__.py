@@ -5,6 +5,8 @@
                  and the join and reduce gathers)
 - ``probe`` / ``probe2`` fixed-depth binary search, one key or (hi, lo)
                  pairs (probe.py; join ranges, lookups, merge interleaves)
+- ``route_dest`` / ``bucket_rank`` destination and bucket slot of each row
+                 (route.py; the mesh exchange)
 
 Dispatch is by device (registry.py): CPU tensors take the plain version,
 CUDA tensors the kernel, with no fallback.
@@ -12,4 +14,5 @@ CUDA tensors the kernel, with no fallback.
 
 from .permute import batch_permute, multi_take  # noqa: F401
 from .registry import KERNELS, LAUNCHES, reset_launches  # noqa: F401
+from .route import bucket_rank, route_dest  # noqa: F401
 from .segsum import run_sum  # noqa: F401

@@ -50,18 +50,18 @@ def multi_take(cols: tuple, idx: torch.Tensor) -> tuple:
         groups.setdefault(c.element_size(), []).append(i)
     lib = registry.library("multi_take")
     max_k = lib.mz_take_max_cols()
-    stream = registry.stream_ptr()
     registry.launch("multi_take", (cols, idx), (len(cols), n, m))
-    for width, members in groups.items():
-        for s in range(0, len(members), max_k):
-            part = members[s : s + max_k]
-            ins = (ctypes.c_void_p * len(part))(*(cols[i].data_ptr() for i in part))
-            outs = (ctypes.c_void_p * len(part))(*(out[i].data_ptr() for i in part))
-            err = lib.mz_multi_take(
-                ctypes.cast(ins, ctypes.c_void_p), ctypes.cast(outs, ctypes.c_void_p),
-                len(part), width, registry.ptr(idx), n, m, stream,
-            )
-            registry.check(err, "multi_take")
+    with registry.on_device(idx.device) as stream:
+        for width, members in groups.items():
+            for s in range(0, len(members), max_k):
+                part = members[s : s + max_k]
+                ins = (ctypes.c_void_p * len(part))(*(cols[i].data_ptr() for i in part))
+                outs = (ctypes.c_void_p * len(part))(*(out[i].data_ptr() for i in part))
+                err = lib.mz_multi_take(
+                    ctypes.cast(ins, ctypes.c_void_p), ctypes.cast(outs, ctypes.c_void_p),
+                    len(part), width, registry.ptr(idx), n, m, stream,
+                )
+                registry.check(err, "multi_take")
     return tuple(out)
 
 

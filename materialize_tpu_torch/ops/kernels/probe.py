@@ -79,11 +79,10 @@ def probe(a: torch.Tensor, q: torch.Tensor, side: str = "left") -> torch.Tensor:
         return out.zero_()
     lib = registry.library("probe")
     registry.launch("probe", (a, q, side), (n, m))
-    registry.check(
-        lib.mz_probe(registry.ptr(a), n, registry.ptr(q), m, code, registry.ptr(out),
-                     registry.stream_ptr()),
-        "probe",
-    )
+    with registry.on_device(q.device) as stream:
+        err = lib.mz_probe(registry.ptr(a), n, registry.ptr(q), m, code, registry.ptr(out),
+                           stream)
+    registry.check(err, "probe")
     return out
 
 
@@ -104,10 +103,9 @@ def probe2(a_hi, a_lo, q_hi, q_lo, side: str = "left") -> torch.Tensor:
         return out.zero_()
     lib = registry.library("probe")
     registry.launch("probe2", (a_hi, a_lo, q_hi, q_lo, side), (n, m))
-    registry.check(
-        lib.mz_probe2(registry.ptr(a_hi), registry.ptr(a_lo), n, registry.ptr(q_hi),
-                      registry.ptr(q_lo), m, code, registry.ptr(out), registry.stream_ptr()),
-        "probe2",
-    )
+    with registry.on_device(q_hi.device) as stream:
+        err = lib.mz_probe2(registry.ptr(a_hi), registry.ptr(a_lo), n, registry.ptr(q_hi),
+                            registry.ptr(q_lo), m, code, registry.ptr(out), stream)
+    registry.check(err, "probe2")
     return out
 

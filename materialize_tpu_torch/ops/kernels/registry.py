@@ -9,7 +9,10 @@ and a plain PyTorch version of the same function beside its wrapper:
 
 There is no mode switch. Each kernel has a launch counter, a plain integer
 in `LAUNCHES` that its wrapper bumps once per call that launches the kernel
-(a wrapper call may issue several CUDA launches; it counts once).
+(a wrapper call may issue several CUDA launches; it counts once). Workers of
+a mesh launch from their own threads, so the counters are bumped under a
+lock. A launch runs with the tensors' device as the thread's current device,
+on that device's current stream (`on_device`).
 
 The kernels are built at first use: every source in `csrc/` is compiled by
 `nvcc` into its own shared library with a plain C interface, all sources at
@@ -24,13 +27,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
-KERNELS = ("run_sum", "multi_take", "probe", "probe2")
+KERNELS = ("run_sum", "multi_take", "probe", "probe2", "route_dest", "bucket_rank")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+_COUNT_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,6 +57,9 @@ _SIGNATURES = {
     "mz_multi_take": ((_VP, _VP, _INT, _INT, _VP, _I64, _I64, _VP), _INT),
     "mz_run_sum_scratch_bytes": ((_I64, _INT), _I64),
     "mz_run_sum": ((_VP, _VP, _I64, _INT, _VP, _VP, _VP), _INT),
+    "mz_route_dest": ((_VP, _I64, _INT, _VP, _VP), _INT),
+    "mz_bucket_rank_scratch_bytes": ((_I64,), _I64),
+    "mz_bucket_rank": ((_VP, _I64, _VP, _VP, _VP), _INT),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -64,23 +74,25 @@ SAMPLES: dict | None = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch(name: str, args: tuple, shape: tuple) -> None:
     """Count one launch of kernel `name`; called by its wrapper just before
     the kernel is launched, and nowhere else."""
-    LAUNCHES[name] += 1
-    if SAMPLES is None:
-        return
-    rec = SAMPLES.setdefault(name, {"shapes": {}, "largest": (-1, None, None)})
-    rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
     size = 1
     for d in shape:
         size *= d
-    if size > rec["largest"][0]:
-        rec["largest"] = (size, shape, args)
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if SAMPLES is None:
+            return
+        rec = SAMPLES.setdefault(name, {"shapes": {}, "largest": (-1, None, None)})
+        rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+        if size > rec["largest"][0]:
+            rec["largest"] = (size, shape, args)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -112,9 +124,14 @@ def _lib_path(src: Path) -> Path:
 
 def build_all() -> dict[str, ctypes.CDLL]:
     """Build (once per source content) and load every kernel library."""
+    with _BUILD_LOCK:
+        if not _LIBS:
+            _build_and_load()
+    return _LIBS
+
+
+def _build_and_load() -> None:
     global BUILD_SECONDS
-    if _LIBS:
-        return _LIBS
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob("*.cu"))
@@ -145,15 +162,23 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 getattr(lib, fn).restype = restype
         _LIBS[src.stem] = lib
     BUILD_SECONDS = time.perf_counter() - t0
-    return _LIBS
 
 
 def library(stem: str) -> ctypes.CDLL:
     return build_all()[stem]
 
 
-def stream_ptr() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of `device` (not of the thread's current device)."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@contextmanager
+def on_device(device: torch.device):
+    """Make `device` the thread's current CUDA device, and yield its current
+    stream: a kernel launched through ctypes runs on the current device."""
+    with torch.cuda.device(device):
+        yield stream_ptr(device)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -55,13 +55,13 @@ def run_sum(run_start: torch.Tensor, cols: tuple) -> tuple:
     if n == 0:
         return out
     lib = registry.library("run_sum")
-    stream = registry.stream_ptr()
     registry.launch("run_sum", (run_start, cols), (len(cols), n))
-    for c, o in zip(cols, out):
-        width = c.element_size()
-        scratch = torch.empty((lib.mz_run_sum_scratch_bytes(n, width),), dtype=torch.uint8,
-                              device=c.device)
-        err = lib.mz_run_sum(registry.ptr(run_start), registry.ptr(c), n, width,
-                             registry.ptr(o), registry.ptr(scratch), stream)
-        registry.check(err, "run_sum")
+    with registry.on_device(run_start.device) as stream:
+        for c, o in zip(cols, out):
+            width = c.element_size()
+            scratch = torch.empty((lib.mz_run_sum_scratch_bytes(n, width),), dtype=torch.uint8,
+                                  device=c.device)
+            err = lib.mz_run_sum(registry.ptr(run_start), registry.ptr(c), n, width,
+                                 registry.ptr(o), registry.ptr(scratch), stream)
+            registry.check(err, "run_sum")
     return out

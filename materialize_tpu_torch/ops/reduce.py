@@ -10,6 +10,7 @@ Fixed-point float sums belong to the slice that brings float aggregates.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -26,8 +27,10 @@ from .search import searchsorted, searchsorted2, sort_perm
 _MAX_HASH_COLLISIONS = 4
 _WIDE_HASH_COLLISIONS = 64
 
-# Host reads made by `lookup_accums` to decide the widening (one each).
+# Host reads made by `lookup_accums` to decide the widening (one each),
+# counted under a lock: mesh workers look up from their own threads.
 HOST_SYNCS = {"lookup_widen": 0}
+_SYNCS_LOCK = threading.Lock()
 
 
 @dataclass
@@ -250,7 +253,8 @@ def lookup_accums(state: AccumState, probe: AccumState):
     hi = searchsorted(state.hashes, probe.hashes, side="right")
     found, idx = _scan_bucket(state, probe, lo, hi, _MAX_HASH_COLLISIONS)
     narrow_missed = (probe.live & ~found & ((hi - lo) > _MAX_HASH_COLLISIONS)).any()
-    HOST_SYNCS["lookup_widen"] += 1
+    with _SYNCS_LOCK:
+        HOST_SYNCS["lookup_widen"] += 1
     if narrow_missed.item():
         found, idx = _scan_bucket(state, probe, lo, hi, _WIDE_HASH_COLLISIONS)
     g = multi_take((*state.accums, state.nrows), idx)

@@ -3,7 +3,8 @@
 `materialize_tpu/__init__.py` switches on JAX's x64 mode globally, so one
 import from the JAX package would pull JAX into the port's process. An AST
 scan of every file of the port (and chip_smoke.py) keeps it out, and a
-subprocess that runs a tiny tick proves it at run time.
+subprocess that runs a tiny tick, alone and on a 2-worker mesh, proves it at
+run time.
 """
 
 import ast
@@ -57,11 +58,21 @@ r = gen.refresh(2, frac=0.05)
 state, out, errs, over = T.q3_tick(state, init["customer"], r["orders"], r["lineitem"], 2,
                                    caps=caps, with_cust=False)
 assert not bool(over.any())
+from materialize_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(2, "cpu")
+wcaps = T.Q3Caps(cust=128, orders=512, lineitem=1024, delta=256, bucket=512, join_out=1024,
+                 groups=1024)
+states = T.shard_state(state, wcaps, mesh)
+r = gen.refresh(3, frac=0.05)
+res = T.q3_tick_sharded(mesh, wcaps)(
+    states, *(T.split_batch(b, mesh) for b in (init["customer"], r["orders"], r["lineitem"])), 3)
+assert len(res) == 2 and not any(bool(o.any()) for _s, _out, _e, o in res)
 assert not [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "materialize_tpu."))
             or m == "materialize_tpu"], sorted(sys.modules)
 print("ok")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # one intra-op thread, as in the other test processes
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -7,6 +7,8 @@ The CUDA kernels are held against the plain versions on the card in
 tests/test_torch_cuda.py and in chip_smoke.py.
 """
 
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,19 @@ from materialize_tpu.ops.kernels.probe import (
 )
 from materialize_tpu.ops.kernels.segsum import _pallas_run_sum, _xla_run_sum
 from materialize_tpu_torch.ops.kernels import permute, probe, registry, segsum
+
+# One intra-op thread: the suite runs in several test processes at once, and
+# torch's default of one thread per core oversubscribes the CPU, which slows
+# the many small operators of a tick by orders of magnitude.
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tracemalloc_off():
+    """An earlier test in this process may have left tracemalloc tracing (the
+    /prof/heap endpoint starts it), which makes every allocation ~10x slower."""
+    if tracemalloc.is_tracing():
+        tracemalloc.stop()
 
 PAD = 0xFFFFFFFF
 

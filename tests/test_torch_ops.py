@@ -6,6 +6,7 @@ and i32 positions to int64.
 """
 
 import importlib
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -28,6 +29,19 @@ from materialize_tpu_torch.ops import join as tjoin
 from materialize_tpu_torch.ops import reduce as tred
 from materialize_tpu_torch.ops.search import sort_perm as t_sort_perm
 from materialize_tpu_torch.repr.batch import UpdateBatch as TB
+
+# One intra-op thread: the suite runs in several test processes at once, and
+# torch's default of one thread per core oversubscribes the CPU, which slows
+# the many small operators of a tick by orders of magnitude.
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tracemalloc_off():
+    """An earlier test in this process may have left tracemalloc tracing (the
+    /prof/heap endpoint starts it), which makes every allocation ~10x slower."""
+    if tracemalloc.is_tracing():
+        tracemalloc.stop()
 
 # the JAX package's ops/__init__ re-exports functions under these module names
 jcons = importlib.import_module("materialize_tpu.ops.consolidate")

@@ -11,6 +11,8 @@ The JAX reference runs once per module, in a module-scoped fixture
 (compiling its two tick variants dominates this file's time).
 """
 
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,19 @@ from materialize_tpu_torch.models import fused_q3 as T
 from materialize_tpu_torch.models.tpch import q3_oracle
 from materialize_tpu_torch.repr.batch import UpdateBatch as TB
 from materialize_tpu_torch.storage import TpchGenerator as TGen
+
+# One intra-op thread: the suite runs in several test processes at once, and
+# torch's default of one thread per core oversubscribes the CPU, which slows
+# the many small operators of a tick by orders of magnitude.
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tracemalloc_off():
+    """An earlier test in this process may have left tracemalloc tracing (the
+    /prof/heap endpoint starts it), which makes every allocation ~10x slower."""
+    if tracemalloc.is_tracing():
+        tracemalloc.stop()
 
 TICKS = range(2, 8)  # tick 2 runs the customer path; 3..7 are churn ticks
 N_CUST_RETRACT = 7

@@ -5,6 +5,8 @@ splitmix64 runs in wrapping int64 there. Every case compares bytes after
 that widening.
 """
 
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,19 @@ from materialize_tpu_torch.models.fused_q3 import Q3Caps, Q3State
 from materialize_tpu_torch.ops.reduce import AccumState
 from materialize_tpu_torch.repr import batch as tbatch
 from materialize_tpu_torch.repr import hashing as thash
+
+# One intra-op thread: the suite runs in several test processes at once, and
+# torch's default of one thread per core oversubscribes the CPU, which slows
+# the many small operators of a tick by orders of magnitude.
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tracemalloc_off():
+    """An earlier test in this process may have left tracemalloc tracing (the
+    /prof/heap endpoint starts it), which makes every allocation ~10x slower."""
+    if tracemalloc.is_tracing():
+        tracemalloc.stop()
 
 I64_MIN, I64_MAX = np.iinfo(np.int64).min, np.iinfo(np.int64).max
 I32_MIN, I32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
