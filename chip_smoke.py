@@ -11,7 +11,8 @@ a machine with one card), whose exchange runs the `route_dest` and
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels from materialize_tpu_torch/csrc/;
-3. kernel edge cases: every kernel against its plain PyTorch version;
+3. kernel edge cases: every kernel against its plain PyTorch version,
+   `probe2` at cases that reach every branch of its kernel;
 4. Q3: generate the tables, hydrate, one warm-up tick that also retracts
    some customers (so the customer delta path runs), then the churn ticks
    at frac = 0.02, timed; on a capacity overflow everything reruns with
@@ -20,17 +21,24 @@ a machine with one card), whose exchange runs the `route_dest` and
 5. kernels at the main path's shapes: each kernel's largest call of phase 4
    is replayed on the same inputs against its plain version (exact
    equality), and timed with CUDA events beside the plain version and, where
-   one PyTorch call computes the same function, that call (`library_ms`);
-6. the maintained view must equal the brute-force `q3_oracle` over the
-   generator's host mirrors, with no error rows and no overflow;
-7. sharded Q3: hydrate on one device, partition the state over the 4
+   one PyTorch call computes the same function, that call (`library_ms`),
+   the two in turns; beside them each wrapper's host cost per call at
+   one-element inputs and that of a one-op PyTorch call (`host_us`);
+6. sharded Q3: hydrate on one device, partition the state over the 4
    workers by `route_dest`, one warm-up tick with the customer retraction,
    then the churn ticks, timed, on the mesh; the same overflow ladder; the
    launch counters are zeroed just before the timed ticks and read just
-   after, and all six kernels must have launched; the union of the
-   workers' views must equal `q3_oracle`. Every kernel is then replayed
-   against its plain version at its largest call of this phase, and
-   `route_dest` and `bucket_rank` are timed there as in phase 5.
+   after, and all six kernels must have launched. Every kernel is then
+   replayed against its plain version at its largest call of this phase,
+   and `route_dest` and `bucket_rank` are timed there as in phase 5;
+7. the profiler, after every CUDA-event timing (a profiler session can
+   slow the process's later launches): each kernel's and library call's
+   device time at its largest call (`kernel_device_ms`,
+   `library_device_ms`), then two more churn ticks of each path, for the
+   device time by kernel and the idle share. Then the union of the
+   workers' views and the single path's view must each equal the
+   brute-force `q3_oracle` over the generator's host mirrors, with no
+   error rows and no overflow.
 
 It prints the kernel table as one JSON line, then the device line as the
 last line. It exits non-zero, printing no result, without a CUDA device.
@@ -106,10 +114,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int = 20) -> float:
+def host_us(fn, iters: int = 200) -> float:
+    """Host cost of one call, in µs: CUDA events around `iters` back-to-back
+    calls on one-element inputs. The device idles between such launches, so
+    the events measure how fast the host issues the calls."""
+    return time_ms(fn, iters=iters, warmup=20) * 1e3
+
+
+def in_turns(measure, fa, fb, rounds: int = 2) -> tuple:
+    """Medians of measure(fa) and measure(fb), taken in turns a, b, b, a."""
+    xa, xb = [], []
+    for _ in range(rounds):
+        xa.append(measure(fa))
+        xb.append(measure(fb))
+        xb.append(measure(fb))
+        xa.append(measure(fa))
+    return float(np.median(xa)), float(np.median(xb))
+
+
+def kernel_ms(fn, iters: int = 20) -> float | None:
     """Mean device time of the CUDA kernels that fn() launches, by the
     profiler: the kernels' own time, without the gaps in which the host
-    issues the next call (which `time_ms` includes when a call is short)."""
+    issues the next call (which `time_ms` includes when a call is short).
+    None (not measured) when the profiler caught no device event, or a
+    count that is no multiple of `iters` (it lost some)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,9 +147,11 @@ def kernel_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not times or len(times) % iters:
+        return None
+    return sum(times) / 1e3 / iters
 
 
 # -- phase 3: edge cases ------------------------------------------------------
@@ -179,12 +209,17 @@ def edge_cases(device) -> int:
             ints = (t(rng.integers(-(1 << 62), 1 << 62, n)),
                     t(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)))
             check("run_sum", segsum.run_sum(t(rs), ints), segsum.plain_run_sum(t(rs), ints))
+    cols, idx = wide_take_case(rng)
+    cols, idx = tuple(t(c) for c in cols), t(idx)
+    check("multi_take", permute.multi_take(cols, idx), permute.plain_multi_take(cols, idx))
     # a run spanning the whole array across many tiles
     n = 3_000_000
     rs = np.zeros(n, dtype=bool)
     rs[0] = True
     col = t(rng.integers(-(1 << 62), 1 << 62, n))
     check("run_sum", segsum.run_sum(t(rs), (col,)), segsum.plain_run_sum(t(rs), (col,)))
+
+    probe2_branches(t, check, rng)
 
     # route_dest over u32 hashes with 0, 2^31 and PAD_HASH; bucket_rank over
     # sorted, all-dead, one-run and unsorted keys
@@ -204,6 +239,58 @@ def edge_cases(device) -> int:
                 k = t(k.astype(np.int32))
                 check("bucket_rank", route.bucket_rank(k), route.plain_bucket_rank(k))
     return n_checks
+
+
+def wide_take_case(rng):
+    """multi_take's columns and index (numpy) with more columns of one width
+    than one launch takes (16), and a column of another width."""
+    cols = tuple(rng.integers(-(1 << 62), 1 << 62, 5000) for _ in range(18))
+    return cols + (rng.random(5000) < 0.5,), rng.integers(-3, 5003, 7000)
+
+
+def probe2_cases(rng) -> dict:
+    """probe2's inputs (numpy `ah, al, qh, ql`; `a` pair-sorted) that reach
+    every branch of its kernel: tiles of 1024 queries, windows of up to 2048
+    rows of `a` (csrc/probe.cu)."""
+    pad = 0xFFFFFFFF
+
+    def pairs(n, hi_range, lo_range, n_pad=0):
+        hi, lo = rng.integers(0, hi_range, n), rng.integers(0, lo_range, n)
+        hi[n - n_pad:], lo[n - n_pad:] = pad, 0
+        order = np.lexsort((lo, hi))
+        return hi[order], lo[order]
+
+    tile = 1024
+    neg_h = rng.integers(-5, 1 << 10, 3 * tile)
+    neg_l = rng.integers(-(1 << 40), 8, 3 * tile)
+    neg = np.lexsort((neg_l, neg_h))
+    cases = {
+        "window fits": (pairs(1 << 16, 1 << 32, 4), pairs(1 << 16, 1 << 32, 4)),
+        "window too large": (pairs(1 << 20, 1 << 32, 1 << 32), pairs(3000, 1 << 32, 1 << 32)),
+        "padding tiles": (pairs(1 << 18, 1 << 32, 8, n_pad=1 << 17),
+                          pairs(5 * tile, 1 << 32, 8, n_pad=4 * tile)),
+        "unsorted": (pairs(50_000, 1 << 16, 4),
+                     (rng.integers(-2, 1 << 16, 9000), rng.integers(-1, 5, 9000))),
+        "hi ties broken on lo": (pairs(50_000, 4, 1 << 32), pairs(50_000, 4, 1 << 32)),
+        "ragged last tile": (pairs(6000, 1 << 20, 4), pairs(5 * tile + 7, 1 << 20, 4)),
+        "n = 1": ((np.array([7]), np.array([3])), pairs(3 * tile, 16, 8)),
+        "m = 1": (pairs(10_000, 1 << 10, 8), (np.array([500]), np.array([2]))),
+        "m < tile < n": (pairs(10_000, 64, 1 << 20), (np.full(100, 5),
+                                                       np.sort(rng.integers(0, 1 << 14, 100)))),
+        "negative queries": (pairs(20_000, 1 << 10, 8), (neg_h[neg], neg_l[neg])),
+    }
+    return {name: (ah, al, qh, ql) for name, ((ah, al), (qh, ql)) in cases.items()}
+
+
+def probe2_branches(t, check, rng) -> None:
+    """probe2 at every case of `probe2_cases`, both sides."""
+    from materialize_tpu_torch.ops.kernels import probe
+
+    for name, arrays in probe2_cases(rng).items():
+        ah, al, qh, ql = (t(x) for x in arrays)
+        for side in ("left", "right"):
+            check(f"probe2 ({name})", probe.probe2(ah, al, qh, ql, side),
+                  probe.plain_searchsorted2(ah, al, qh, ql, side))
 
 
 # -- phase 4: Q3 ----------------------------------------------------------------
@@ -304,33 +391,41 @@ def run_q3(device, sf: float, ticks: int, frac: float, n_cust_retract: int,
     launches = dict(registry.LAUNCHES)
     samples, registry.SAMPLES = registry.SAMPLES, None
     syncs = HOST_SYNCS["lookup_widen"] - syncs0
-
-    # where the time goes: more churn ticks under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof = time.perf_counter()
-        for tk, r in refreshes[1 + ticks :]:
-            state, out, errs, over = q3_tick(state, empty_c, r["orders"], r["lineitem"], tk,
-                                             caps=caps, with_cust=False)
-            flags.append(over)
-            errs_live.append(errs.count())
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t_prof
     if bool(torch.cat(flags).any()):
         return retry("tick overflow")
-    n_errs = int(torch.stack(errs_live).sum())
-    if n_errs:
-        raise AssertionError(f"{n_errs} error rows in the ticks")
+
+    def profiled_ticks() -> dict:
+        """Where the time goes: the last churn ticks under the profiler. Run
+        after every CUDA-event timing of the script: a profiler session
+        can slow the process's later launches."""
+        nonlocal state
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            for tk, r in refreshes[1 + ticks :]:
+                state, _out, errs, over = q3_tick(state, empty_c, r["orders"], r["lineitem"],
+                                                  tk, caps=caps, with_cust=False)
+                flags.append(over)
+                errs_live.append(errs.count())
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_prof
+        if bool(torch.cat(flags).any()):
+            raise AssertionError("overflow in the profiled ticks")
+        n_errs = int(torch.stack(errs_live).sum())
+        if n_errs:
+            raise AssertionError(f"{n_errs} error rows in the ticks")
+        return {"profile": device_breakdown(prof, prof_wall), "state": state}
+
     timed = sum(n_updates[1 : 1 + ticks])
     return {
-        "gen": gen, "state": state, "caps": caps, "scale": scale,
+        "gen": gen, "caps": caps, "scale": scale,
         "hydrate_s": hydrate_s, "hydrate_launches": hydrate_launches,
         "timed_updates": timed, "elapsed_s": elapsed, "ticks": ticks,
         "updates_per_s": timed / elapsed, "launches": launches, "samples": samples,
         "host_syncs_per_tick": syncs / ticks,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "profile": device_breakdown(prof, prof_wall),
+        "profiled_ticks": profiled_ticks,
     }
 
 
@@ -359,6 +454,7 @@ def run_sharded(sf: float, ticks: int, frac: float, n_cust_retract: int, seed: i
     n = len(mesh)
     phase(f"sharded: mesh {[str(d) for d in mesh]}; generating TPC-H sf={sf} (scale {scale})")
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # what the single path still holds
     gen = TpchGenerator(sf=sf, seed=seed, val_dtype=np.int32, device=mesh[0])
     init = gen.initial_batches(1)
     one = q3_caps(gen, frac, scale)
@@ -422,34 +518,41 @@ def run_sharded(sf: float, ticks: int, frac: float, n_cust_retract: int, seed: i
     launches = dict(registry.LAUNCHES)
     samples, registry.SAMPLES = registry.SAMPLES, None
     syncs = HOST_SYNCS["lookup_widen"] - syncs0
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof = time.perf_counter()
-        for tk, d_ords, d_lis in refreshes[1 + ticks :]:
-            tick(churn, empty_c, tk, d_ords, d_lis)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t_prof
     if bool(torch.cat([f.to(mesh[0]) for f in flags]).any()):
         return retry("tick overflow")
-    n_errs = int(torch.stack(errs_live).sum())
-    if n_errs:
-        raise AssertionError(f"sharded: {n_errs} error rows in the ticks")
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+    def profiled_ticks() -> dict:
+        """The last churn ticks under the profiler, after every CUDA-event
+        timing of the script (see run_q3)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            for tk, d_ords, d_lis in refreshes[1 + ticks :]:
+                tick(churn, empty_c, tk, d_ords, d_lis)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_prof
+        if bool(torch.cat([f.to(mesh[0]) for f in flags]).any()):
+            raise AssertionError("sharded: overflow in the profiled ticks")
+        n_errs = int(torch.stack(errs_live).sum())
+        if n_errs:
+            raise AssertionError(f"sharded: {n_errs} error rows in the ticks")
+        return {"profile": device_breakdown(prof, prof_wall), "states": states}
+
     timed = sum(n_updates[1 : 1 + ticks])
     return {
-        "gen": gen, "states": states, "caps": caps, "scale": scale,
+        "gen": gen, "caps": caps, "scale": scale,
         "mesh": [str(d) for d in mesh],
         "hydrate_s": hydrate_s, "timed_updates": timed, "elapsed_s": elapsed, "ticks": ticks,
         "updates_per_s": timed / elapsed, "launches": launches, "samples": samples,
-        "host_syncs_per_tick": syncs / ticks,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "profile": device_breakdown(prof, prof_wall),
+        "host_syncs_per_tick": syncs / ticks, "peak_mem_gib": peak,
+        "profiled_ticks": profiled_ticks,
     }
 
 
 _OURS = {"scan_tile": "run_sum", "fix_tile": "run_sum", "take_kernel": "multi_take",
-         "probe2_kernel": "probe2", "probe_kernel": "probe", "route_kernel": "route_dest",
+         "probe2_": "probe2", "probe_kernel": "probe", "route_kernel": "route_dest",
          "tile_max": "bucket_rank", "apply_tile": "bucket_rank"}
 
 
@@ -488,8 +591,45 @@ def _bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def host_op(name: str, args: tuple):
+    """(name, fn) of the one PyTorch call whose host cost stands beside the
+    wrapper's: the library call where there is one, else a scan of the same
+    input (a single op, not the same function)."""
+    if name in ("run_sum", "bucket_rank"):
+        col = args[1][0] if name == "run_sum" else args[0]
+        return "torch.cumsum", lambda: torch.cumsum(col, 0)
+    if name == "multi_take":
+        col, idx = args[0][0], torch.zeros_like(args[1])
+        return "index_select", lambda: col.index_select(0, idx)
+    return {"probe": "torch.searchsorted", "probe2": "torch.searchsorted",
+            "route_dest": "torch.remainder"}[name], replay(name, args)[2]
+
+
+def _runs(*keys: torch.Tensor) -> int:
+    """Runs of equal rows in sorted key columns: a search needs to read one
+    row of each run (its first), not the rest, e.g. a tail of padding."""
+    n = keys[0].numel()
+    if n == 0:
+        return 0
+    differs = torch.zeros(n - 1, dtype=torch.bool, device=keys[0].device)
+    for k in keys:
+        differs |= k[1:] != k[:-1]
+    return 1 + int(differs.sum())
+
+
+def one_element(args):
+    """`args` with every tensor cut to its first element (a copy)."""
+    if isinstance(args, torch.Tensor):
+        return args[:1].clone()
+    if isinstance(args, tuple):
+        return tuple(one_element(a) for a in args)
+    return args
+
+
 def replay(name: str, args: tuple):
-    """(kernel fn, plain fn, library fn or None, bytes the function must move)."""
+    """(kernel fn, plain fn, library fn or None, bytes the function must move
+    on these inputs: each input row it needs read once, each output written
+    once)."""
     from materialize_tpu_torch.ops.kernels import permute, probe, route, segsum
 
     if name == "route_dest":
@@ -505,7 +645,7 @@ def replay(name: str, args: tuple):
         a, q, side = args
         return (lambda: probe.probe(a, q, side), lambda: probe.plain_searchsorted(a, q, side),
                 lambda: torch.searchsorted(a, q, right=side == "right"),
-                _bytes(a) + _bytes(q) + q.numel() * 8)
+                _runs(a) * a.element_size() + _bytes(q) + q.numel() * 8)
     if name == "probe2":
         ah, al, qh, ql, side = args
         # one int64 key that orders like the (hi, lo) pair of u32 values
@@ -514,7 +654,8 @@ def replay(name: str, args: tuple):
         return (lambda: probe.probe2(ah, al, qh, ql, side),
                 lambda: probe.plain_searchsorted2(ah, al, qh, ql, side),
                 lambda: torch.searchsorted(ka, kq, right=side == "right"),
-                _bytes(ah) + _bytes(al) + _bytes(qh) + _bytes(ql) + qh.numel() * 8)
+                _runs(ah, al) * (ah.element_size() + al.element_size())
+                + _bytes(qh) + _bytes(ql) + qh.numel() * 8)
     if name == "multi_take":
         cols, idx = args
         n, m = cols[0].numel(), idx.numel()
@@ -527,8 +668,8 @@ def replay(name: str, args: tuple):
         def library():
             return [mat.index_select(1, ix) for mat in mats]
 
-        moved = _bytes(idx) + sum(min(n, m) * c.element_size() + m * c.element_size()
-                                  for c in cols)
+        rows = torch.unique(ix).numel()  # the rows of each column it reads
+        moved = _bytes(idx) + sum((rows + m) * c.element_size() for c in cols)
         return (lambda: permute.multi_take(cols, idx), lambda: permute.plain_multi_take(cols, idx),
                 library, moved)
     if name == "run_sum":
@@ -555,25 +696,45 @@ def check_largest(name: str, samples: dict):
 
 def kernel_table(names, samples: dict, launches: dict) -> list:
     """Each kernel's largest call in `samples`, replayed against its plain
-    version and timed."""
+    version and timed by CUDA events: the wrapper and the library call in
+    turns, and the host cost of both at one-element inputs."""
     rows = []
     for name in names:
         shape, (kern, plain, library, moved), err = check_largest(name, samples)
+        if library is not None:
+            ms, library_ms = in_turns(time_ms, kern, library)
+        else:
+            ms, library_ms = float(np.median([time_ms(kern) for _ in range(4)])), None
+        tiny = one_element(samples[name]["largest"][2])
+        op_name, op = host_op(name, tiny)
+        wrapper_us, op_us = in_turns(host_us, replay(name, tiny)[0], op)
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "max_abs_err": err, "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": time_ms(library) if library is not None else None,
-            "kernel_device_ms": kernel_ms(kern),
+            "library_ms": library_ms,
+            "host_us": {"wrapper": wrapper_us, "op": op_us, "op_name": op_name},
             "shape": list(shape),
         }
         rows.append(row)
-        phase(f"{name} at {shape}: {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f}), "
-              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, "
-              f"library {row['library_ms']}")
+        phase(f"{name} at {shape}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), "
+              f"library {row['library_ms']}; "
+              f"host µs a call at n = 1: {row['host_us']}")
     return rows
+
+
+def device_times(rows: list, samples: dict) -> None:
+    """The profiler's device time of each row's kernel and library call at
+    its largest call in `samples` (the path the row's `shape` is from)."""
+    for row in rows:
+        _size, _shape, args = samples[row["name"]]["largest"]
+        kern, _plain, library, _moved = replay(row["name"], args)
+        row["kernel_device_ms"] = kernel_ms(kern)
+        row["library_device_ms"] = kernel_ms(library) if library is not None else None
+        phase(f"{row['name']}: device {row['kernel_device_ms']} ms, library device "
+              f"{row['library_device_ms']} ms")
 
 
 def main() -> int:
@@ -614,16 +775,7 @@ def main() -> int:
     for k in SINGLE_PATH:
         shapes = sorted(samples[k]["shapes"].items(), key=lambda kv: -kv[1])
         print(f"#   {k} shapes in the timed ticks (shape: calls): {shapes[:12]}")
-
-    gen = q3.pop("gen")
-    view = read_view(q3.pop("state"))
-    want = q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
-    if view != want:
-        raise AssertionError(f"view differs from q3_oracle: {len(view)} vs {len(want)} groups")
-    phase(f"view equals q3_oracle: {len(view)} groups")
-    del gen, view, want
     rows = kernel_table(SINGLE_PATH, samples, launches)
-    del samples  # so the sharded phase's peak memory is its own
 
     sh = run_sharded(sf=1.0, ticks=5, frac=0.02, n_cust_retract=1000)
     sh_launches, sh_samples = sh.pop("launches"), sh.pop("samples")
@@ -637,10 +789,25 @@ def main() -> int:
     for k in ("route_dest", "bucket_rank"):
         shapes = sorted(sh_samples[k]["shapes"].items(), key=lambda kv: -kv[1])
         print(f"#   {k} shapes in the sharded timed ticks (shape: calls): {shapes}")
+    # the single path's kernels also at their largest calls of the sharded
+    # phase (per-worker shapes); the route kernels run only there
+    for row in rows:
+        shape, _fns, err = check_largest(row["name"], sh_samples)
+        row["sharded_shape"], row["sharded_max_abs_err"] = list(shape), err
+        phase(f"{row['name']} equals its plain version at the sharded phase's {shape}")
+    sh_rows = kernel_table(("route_dest", "bucket_rank"), sh_samples, sh_launches)
+
+    # every CUDA-event timing is done: now the profiler (the short sessions
+    # first: after the ticks' long ones, short ones lost events), and the views
+    device_times(rows, samples)
+    device_times(sh_rows, sh_samples)
+    del samples, sh_samples
+    done = sh.pop("profiled_ticks")()
+    sh["profile"] = done["profile"]
     gen = sh.pop("gen")
     want = q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
     view: dict = {}
-    for state in sh.pop("states"):
+    for state in done.pop("states"):
         part = read_view(state)
         if set(part) & set(view):
             raise AssertionError("a group is owned by more than one worker")
@@ -650,18 +817,20 @@ def main() -> int:
                              f"{len(want)} groups")
     phase(f"sharded view (union of {len(sh['mesh'])} workers) equals q3_oracle: "
           f"{len(view)} groups")
-    del gen, view, want
+    del gen, view, want, done
 
-    # the single path's kernels also at their largest calls of the sharded
-    # phase (per-worker shapes); the route kernels run only there
-    for row in rows:
-        shape, _fns, err = check_largest(row["name"], sh_samples)
-        row["sharded_shape"], row["sharded_max_abs_err"] = list(shape), err
-        phase(f"{row['name']} equals its plain version at the sharded phase's {shape}")
-    rows += kernel_table(("route_dest", "bucket_rank"), sh_samples, sh_launches)
+    done = q3.pop("profiled_ticks")()
+    q3["profile"] = done["profile"]
+    gen = q3.pop("gen")
+    view = read_view(done.pop("state"))
+    want = q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
+    if view != want:
+        raise AssertionError(f"view differs from q3_oracle: {len(view)} vs {len(want)} groups")
+    phase(f"view equals q3_oracle: {len(view)} groups")
+    del gen, view, want, done
+    rows += sh_rows
     for row in rows:
         row["launches_sharded"] = sh_launches[row["name"]]
-    del sh_samples
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 #define MZ_TAKE_MAX_COLS 16
 
 namespace {
@@ -40,28 +42,35 @@ __global__ void take_kernel(Cols cols, const int64_t* __restrict__ idx, int64_t 
 
 }  // namespace
 
-extern "C" int mz_take_max_cols() { return MZ_TAKE_MAX_COLS; }
-
-// ins[k], outs[k]: device pointers of k columns of elem_bytes each (1, 2, 4
-// or 8); ins have n elements, outs and idx (int64) have m. Requires n > 0,
-// m > 0 and 0 < k <= MZ_TAKE_MAX_COLS.
-extern "C" int mz_multi_take(void* const* ins, void* const* outs, int k, int elem_bytes,
-                             const void* idx, int64_t n, int64_t m, void* stream) {
-  if (k <= 0 || k > MZ_TAKE_MAX_COLS) return (int)cudaErrorInvalidValue;
-  Cols cols;
-  for (int c = 0; c < k; ++c) {
-    cols.in[c] = ins[c];
-    cols.out[c] = outs[c];
-  }
-  dim3 grid((unsigned)((m + kThreads - 1) / kThreads), (unsigned)k);
+// ins[k], outs[k]: pointers, on CUDA device `device`, of k columns of
+// elem_bytes each (1, 2, 4 or 8); ins have n elements, outs and idx (int64)
+// have m. Requires n > 0, m > 0 and k > 0. One launch for each
+// MZ_TAKE_MAX_COLS columns (the pointers travel in the kernel's parameters).
+extern "C" int mz_multi_take(int device, void* const* ins, void* const* outs, int k,
+                             int elem_bytes, const void* idx, int64_t n, int64_t m,
+                             void* stream) {
+  if (k <= 0) return (int)cudaErrorInvalidValue;
+  mz::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t* ix = (const int64_t*)idx;
-  switch (elem_bytes) {
-    case 1: take_kernel<uint8_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
-    case 2: take_kernel<uint16_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
-    case 4: take_kernel<uint32_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
-    case 8: take_kernel<uint64_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
-    default: return (int)cudaErrorInvalidValue;
+  for (int c0 = 0; c0 < k; c0 += MZ_TAKE_MAX_COLS) {
+    const int kc = k - c0 < MZ_TAKE_MAX_COLS ? k - c0 : MZ_TAKE_MAX_COLS;
+    Cols cols;
+    for (int c = 0; c < kc; ++c) {
+      cols.in[c] = ins[c0 + c];
+      cols.out[c] = outs[c0 + c];
+    }
+    dim3 grid((unsigned)((m + kThreads - 1) / kThreads), (unsigned)kc);
+    switch (elem_bytes) {
+      case 1: take_kernel<uint8_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
+      case 2: take_kernel<uint16_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
+      case 4: take_kernel<uint32_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
+      case 8: take_kernel<uint64_t><<<grid, kThreads, 0, st>>>(cols, ix, n, m); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

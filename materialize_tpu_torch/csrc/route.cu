@@ -29,6 +29,8 @@
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -141,8 +143,12 @@ cudaError_t max_scan(const int32_t* in, int64_t n, int32_t* out, char* scratch, 
 
 }  // namespace
 
-// hashes: int64[n], each in [0, 2^32); out: int32[n]. Requires n > 0 and n_dest > 0.
-extern "C" int mz_route_dest(const void* hashes, int64_t n, int n_dest, void* out, void* stream) {
+// hashes: int64[n], each in [0, 2^32); out: int32[n], on CUDA device `device`.
+// Requires n > 0 and n_dest > 0.
+extern "C" int mz_route_dest(int device, const void* hashes, int64_t n, int n_dest, void* out,
+                             void* stream) {
+  mz::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   route_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const int64_t*)hashes, n,
                                                               (int32_t)n_dest, (int32_t*)out);
@@ -154,8 +160,10 @@ extern "C" int64_t mz_bucket_rank_scratch_bytes(int64_t n) { return n > 0 ? leve
 
 // key_s: int32[n]; out: int32[n]. Requires 0 < n < 2^31 and scratch of
 // mz_bucket_rank_scratch_bytes(n).
-extern "C" int mz_bucket_rank(const void* key_s, int64_t n, void* out, void* scratch,
-                              void* stream) {
+extern "C" int mz_bucket_rank(int device, const void* key_s, int64_t n, void* out,
+                              void* scratch, void* stream) {
+  mz::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   return (int)max_scan<true>((const int32_t*)key_s, n, (int32_t*)out, (char*)scratch,
                              (cudaStream_t)stream);
 }

@@ -34,6 +34,8 @@
 
 #include <cub/block/block_scan.cuh>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -177,10 +179,13 @@ extern "C" int64_t mz_run_sum_scratch_bytes(int64_t n, int elem_bytes) {
   return n > 0 ? level_bytes(n, elem_bytes) : 0;
 }
 
-// run_start: uint8/bool[n]; col, out: [n] of elem_bytes (4: int32, 8: int64).
-// Requires n > 0 and scratch of mz_run_sum_scratch_bytes(n, elem_bytes).
-extern "C" int mz_run_sum(const void* run_start, const void* col, int64_t n, int elem_bytes,
-                          void* out, void* scratch, void* stream) {
+// run_start: uint8/bool[n]; col, out: [n] of elem_bytes (4: int32, 8: int64),
+// on CUDA device `device`. Requires n > 0 and scratch of
+// mz_run_sum_scratch_bytes(n, elem_bytes).
+extern "C" int mz_run_sum(int device, const void* run_start, const void* col, int64_t n,
+                          int elem_bytes, void* out, void* scratch, void* stream) {
+  mz::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* rs = (const uint8_t*)run_start;
   switch (elem_bytes) {

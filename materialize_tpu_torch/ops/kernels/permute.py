@@ -3,9 +3,9 @@
 Counterpart of materialize_tpu/ops/kernels/permute.py. Gathers every column
 at `idx`, clamping out-of-range indices into [0, n - 1] (jnp.take's
 mode="clip"). On a CUDA tensor the wrapper groups the columns by element
-width and launches `csrc/multi_take.cu` once per group of up to 16 columns:
-a gather moves bits, so every dtype of one width (bool as a 1-byte integer,
-as the reference moves it as int8) shares a launch. On the CPU it runs the
+width and calls `csrc/multi_take.cu` once per group, which launches once
+per 16 columns: a gather moves bits, so every dtype of one width (bool as a
+1-byte integer, as the reference moves it as int8) shares a launch. On the CPU it runs the
 plain version: one clamped `index_select` per column.
 """
 
@@ -33,7 +33,8 @@ def multi_take(cols: tuple, idx: torch.Tensor) -> tuple:
     cols = tuple(cols)
     if not cols:
         return ()
-    if not registry.on_cuda(idx, *cols):
+    dev = registry.device_index(idx, *cols)
+    if dev < 0:
         return plain_multi_take(cols, idx)
     registry.require(idx, (torch.int64,), "multi_take: idx")
     n, m = int(cols[0].shape[0]), int(idx.shape[0])
@@ -42,26 +43,17 @@ def multi_take(cols: tuple, idx: torch.Tensor) -> tuple:
             raise ValueError("multi_take: columns must be contiguous 1-D and of one length")
     if n == 0:
         raise ValueError("multi_take: cannot gather from empty columns")
-    out = [torch.empty((m,), dtype=c.dtype, device=c.device) for c in cols]
+    out = [c.new_empty(m) for c in cols]
     if m == 0:
         return tuple(out)
     groups: dict[int, list[int]] = {}
     for i, c in enumerate(cols):
         groups.setdefault(c.element_size(), []).append(i)
-    lib = registry.library("multi_take")
-    max_k = lib.mz_take_max_cols()
     registry.launch("multi_take", (cols, idx), (len(cols), n, m))
-    with registry.on_device(idx.device) as stream:
-        for width, members in groups.items():
-            for s in range(0, len(members), max_k):
-                part = members[s : s + max_k]
-                ins = (ctypes.c_void_p * len(part))(*(cols[i].data_ptr() for i in part))
-                outs = (ctypes.c_void_p * len(part))(*(out[i].data_ptr() for i in part))
-                err = lib.mz_multi_take(
-                    ctypes.cast(ins, ctypes.c_void_p), ctypes.cast(outs, ctypes.c_void_p),
-                    len(part), width, registry.ptr(idx), n, m, stream,
-                )
-                registry.check(err, "multi_take")
+    for width, members in groups.items():
+        ins = (ctypes.c_void_p * len(members))(*(cols[i].data_ptr() for i in members))
+        outs = (ctypes.c_void_p * len(members))(*(out[i].data_ptr() for i in members))
+        registry.run("mz_multi_take", dev, ins, outs, len(members), width, idx.data_ptr(), n, m)
     return tuple(out)
 
 

@@ -6,10 +6,12 @@ of match counts); `probe2` searches (hi, lo) pairs compared
 lexicographically (the merge interleaves). Both return int64 insertion
 points in [0, n].
 
-On a CUDA tensor the wrapper launches `csrc/probe.cu` (one thread per query,
-the same unrolled loop; see the note there for what bounds it). On the CPU
-it runs the plain version below: the unrolled ceil(log2 n) + 1
-compare/select steps of the JAX reference, step for step.
+On a CUDA tensor each wrapper launches its kernel in `csrc/probe.cu`:
+`probe` runs the reference's unrolled loop, one thread per query; `probe2`
+searches tiles of sorted queries in a window of `a` staged in shared memory
+(see the note there for what bounds each). On the CPU each runs the plain
+version below: the unrolled ceil(log2 n) + 1 compare/select steps of the JAX
+reference, step for step.
 """
 
 from __future__ import annotations
@@ -67,45 +69,46 @@ def _side_code(side: str) -> int:
 def probe(a: torch.Tensor, q: torch.Tensor, side: str = "left") -> torch.Tensor:
     """Insertion points of q[m] in the sorted a[n] (np.searchsorted semantics)."""
     code = _side_code(side)
-    if not registry.on_cuda(a, q):
+    dev = registry.device_index(a, q)
+    if dev < 0:
         return plain_searchsorted(a, q, side)
     registry.require(a, _I64, "probe: a")
     registry.require(q, _I64, "probe: q")
-    n, m = int(a.shape[0]), int(q.shape[0])
-    out = torch.empty((m,), dtype=torch.int64, device=q.device)
+    n, m = a.shape[0], q.shape[0]
+    out = q.new_empty(m)
     if m == 0:
         return out
     if n == 0:
         return out.zero_()
-    lib = registry.library("probe")
     registry.launch("probe", (a, q, side), (n, m))
-    with registry.on_device(q.device) as stream:
-        err = lib.mz_probe(registry.ptr(a), n, registry.ptr(q), m, code, registry.ptr(out),
-                           stream)
-    registry.check(err, "probe")
+    registry.run("mz_probe", dev, a.data_ptr(), n, q.data_ptr(), m, code, out.data_ptr())
     return out
 
 
 def probe2(a_hi, a_lo, q_hi, q_lo, side: str = "left") -> torch.Tensor:
-    """Insertion points of (q_hi, q_lo) pairs in the pair-sorted (a_hi, a_lo)."""
+    """Insertion points of (q_hi, q_lo) pairs in the pair-sorted (a_hi, a_lo).
+
+    Precondition: `a` is sorted by (hi, lo), as the reference assumes. The
+    queries may come in any order; sorted ones, as a merge gives them, take
+    the kernel's fast branch."""
     code = _side_code(side)
-    if not registry.on_cuda(a_hi, a_lo, q_hi, q_lo):
+    dev = registry.device_index(a_hi, a_lo, q_hi, q_lo)
+    if dev < 0:
         return plain_searchsorted2(a_hi, a_lo, q_hi, q_lo, side)
-    for t, nm in ((a_hi, "a_hi"), (a_lo, "a_lo"), (q_hi, "q_hi"), (q_lo, "q_lo")):
-        registry.require(t, _I64, f"probe2: {nm}")
-    n, m = int(a_hi.shape[0]), int(q_hi.shape[0])
-    if int(a_lo.shape[0]) != n or int(q_lo.shape[0]) != m:
+    registry.require(a_hi, _I64, "probe2: a_hi")
+    registry.require(a_lo, _I64, "probe2: a_lo")
+    registry.require(q_hi, _I64, "probe2: q_hi")
+    registry.require(q_lo, _I64, "probe2: q_lo")
+    n, m = a_hi.shape[0], q_hi.shape[0]
+    if a_lo.shape[0] != n or q_lo.shape[0] != m:
         raise ValueError("probe2: hi and lo columns differ in length")
-    out = torch.empty((m,), dtype=torch.int64, device=q_hi.device)
+    out = q_hi.new_empty(m)
     if m == 0:
         return out
     if n == 0:
         return out.zero_()
-    lib = registry.library("probe")
     registry.launch("probe2", (a_hi, a_lo, q_hi, q_lo, side), (n, m))
-    with registry.on_device(q_hi.device) as stream:
-        err = lib.mz_probe2(registry.ptr(a_hi), registry.ptr(a_lo), n, registry.ptr(q_hi),
-                            registry.ptr(q_lo), m, code, registry.ptr(out), stream)
-    registry.check(err, "probe2")
+    registry.run("mz_probe2", dev, a_hi.data_ptr(), a_lo.data_ptr(), n, q_hi.data_ptr(),
+                 q_lo.data_ptr(), m, code, out.data_ptr())
     return out
 

@@ -11,13 +11,20 @@ There is no mode switch. Each kernel has a launch counter, a plain integer
 in `LAUNCHES` that its wrapper bumps once per call that launches the kernel
 (a wrapper call may issue several CUDA launches; it counts once). Workers of
 a mesh launch from their own threads, so the counters are bumped under a
-lock. A launch runs with the tensors' device as the thread's current device,
-on that device's current stream (`on_device`).
+lock.
 
 The kernels are built at first use: every source in `csrc/` is compiled by
 `nvcc` into its own shared library with a plain C interface, all sources at
 once in parallel, into `materialize_tpu_torch/_build/`, and loaded with
 ctypes. A missing `nvcc` or a failed build raises.
+
+Every wrapper launches through `run`, the one launch path: it passes the
+tensors' device index and that device's current stream (a raw handle, no
+`torch.cuda.Stream` object) to the C entry point, which makes the device
+current around the launch and returns the launch's error code. Pointers go
+as plain ints. The libraries are loaded as `ctypes.PyDLL`, so a launch keeps
+the interpreter lock: it takes microseconds, and a mesh worker that released
+the lock for it could queue behind the other workers to get it back.
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ import shutil
 import subprocess
 import threading
 import time
-from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -48,23 +54,24 @@ NVCC_FLAGS = (
 )
 
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# C entry points of csrc/*.cu: (argtypes, restype). Pointers and the stream
-# are c_void_p, or ctypes would pass them as 32-bit ints.
+# C entry points of csrc/*.cu: (argtypes, restype). Every launching entry
+# point takes the device index first and the stream last. Pointers and the
+# stream are c_void_p, or ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
-    "mz_probe": ((_VP, _I64, _VP, _I64, _INT, _VP, _VP), _INT),
-    "mz_probe2": ((_VP, _VP, _I64, _VP, _VP, _I64, _INT, _VP, _VP), _INT),
-    "mz_take_max_cols": ((), _INT),
-    "mz_multi_take": ((_VP, _VP, _INT, _INT, _VP, _I64, _I64, _VP), _INT),
+    "mz_probe": ((_INT, _VP, _I64, _VP, _I64, _INT, _VP, _VP), _INT),
+    "mz_probe2": ((_INT, _VP, _VP, _I64, _VP, _VP, _I64, _INT, _VP, _VP), _INT),
+    "mz_multi_take": ((_INT, _VP, _VP, _INT, _INT, _VP, _I64, _I64, _VP), _INT),
     "mz_run_sum_scratch_bytes": ((_I64, _INT), _I64),
-    "mz_run_sum": ((_VP, _VP, _I64, _INT, _VP, _VP, _VP), _INT),
-    "mz_route_dest": ((_VP, _I64, _INT, _VP, _VP), _INT),
+    "mz_run_sum": ((_INT, _VP, _VP, _I64, _INT, _VP, _VP, _VP), _INT),
+    "mz_route_dest": ((_INT, _VP, _I64, _INT, _VP, _VP), _INT),
     "mz_bucket_rank_scratch_bytes": ((_I64,), _I64),
-    "mz_bucket_rank": ((_VP, _I64, _VP, _VP, _VP), _INT),
+    "mz_bucket_rank": ((_INT, _VP, _I64, _VP, _VP, _VP), _INT),
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict = {}  # C entry point name -> its bound function, filled once by the build
 BUILD_LOG: dict[str, str] = {}  # source stem -> nvcc's output (registers, spills)
 BUILD_SECONDS: float | None = None
+_raw_stream = None  # torch's current raw stream of a device index, bound at the build
 
 
 # When a dict, `launch` also keeps per kernel the shapes of its calls and
@@ -82,29 +89,34 @@ def reset_launches() -> None:
 def launch(name: str, args: tuple, shape: tuple) -> None:
     """Count one launch of kernel `name`; called by its wrapper just before
     the kernel is launched, and nowhere else."""
-    size = 1
-    for d in shape:
-        size *= d
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         if SAMPLES is None:
             return
+        size = 1
+        for d in shape:
+            size *= d
         rec = SAMPLES.setdefault(name, {"shapes": {}, "largest": (-1, None, None)})
         rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
         if size > rec["largest"][0]:
             rec["largest"] = (size, shape, args)
 
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on one CUDA device, False when every one
-    lies on the CPU; anything else raises."""
-    devices = {t.device for t in tensors}
-    kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len(devices) == 1:
-        return True
-    raise ValueError(f"kernel inputs on mixed or unsupported devices: {sorted(map(str, devices))}")
+def device_index(*tensors: torch.Tensor) -> int:
+    """The CUDA device index when every tensor lies on one CUDA device, -1
+    when every one lies on the CPU; anything else raises."""
+    first = tensors[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != dev:
+                break
+        else:
+            return dev
+    elif all(t.is_cpu for t in tensors):
+        return -1
+    devices = sorted({str(t.device) for t in tensors})
+    raise ValueError(f"kernel inputs on mixed or unsupported devices: {devices}")
 
 
 def _nvcc() -> str:
@@ -118,20 +130,20 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
+def build_all() -> None:
     """Build (once per source content) and load every kernel library."""
     with _BUILD_LOCK:
-        if not _LIBS:
+        if not _FNS:
             _build_and_load()
-    return _LIBS
 
 
 def _build_and_load() -> None:
-    global BUILD_SECONDS
+    global BUILD_SECONDS, _raw_stream
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob("*.cu"))
@@ -154,40 +166,37 @@ def _build_and_load() -> None:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    fns = {}
     for src in sources:
-        lib = ctypes.CDLL(str(_lib_path(src)))
-        for fn, (argtypes, restype) in _SIGNATURES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-        _LIBS[src.stem] = lib
+        lib = ctypes.PyDLL(str(_lib_path(src)))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+                fns[name] = fn
+    _FNS.update(fns)  # last: a reader that finds an entry finds it bound
     BUILD_SECONDS = time.perf_counter() - t0
 
 
-def library(stem: str) -> ctypes.CDLL:
-    return build_all()[stem]
+def c_fn(name: str):
+    """The bound C function `name` of the kernel libraries (built at first
+    use; later calls take no lock)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        build_all()
+        fn = _FNS[name]
+    return fn
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    """The current stream of `device` (not of the thread's current device)."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-@contextmanager
-def on_device(device: torch.device):
-    """Make `device` the thread's current CUDA device, and yield its current
-    stream: a kernel launched through ctypes runs on the current device."""
-    with torch.cuda.device(device):
-        yield stream_ptr(device)
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+def run(entry: str, dev: int, *args) -> None:
+    """Launch C entry point `entry` on CUDA device `dev`, on that device's
+    current stream; raise if the launch failed. `args` are the entry point's
+    arguments between the device index and the stream; tensors go as their
+    `data_ptr()`."""
+    err = c_fn(entry)(dev, *args, _raw_stream(dev))
+    if err:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
 
 
 def require(t: torch.Tensor, dtypes, name: str) -> None:

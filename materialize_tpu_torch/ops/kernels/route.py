@@ -46,38 +46,33 @@ def route_dest(hashes: torch.Tensor, n_dest: int) -> torch.Tensor:
     n_dest = int(n_dest)
     if not 0 < n_dest < 2**31:
         raise ValueError(f"route_dest: n_dest must be in [1, 2^31), got {n_dest}")
-    if not registry.on_cuda(hashes):
+    dev = registry.device_index(hashes)
+    if dev < 0:
         return plain_route_dest(hashes, n_dest)
     registry.require(hashes, (torch.int64,), "route_dest: hashes")
-    n = int(hashes.shape[0])
-    out = torch.empty((n,), dtype=torch.int32, device=hashes.device)
+    n = hashes.shape[0]
+    out = hashes.new_empty(n, dtype=torch.int32)
     if n == 0:
         return out
-    lib = registry.library("route")
     registry.launch("route_dest", (hashes, n_dest), (n, n_dest))
-    with registry.on_device(hashes.device) as stream:
-        err = lib.mz_route_dest(registry.ptr(hashes), n, n_dest, registry.ptr(out), stream)
-    registry.check(err, "route_dest")
+    registry.run("mz_route_dest", dev, hashes.data_ptr(), n, n_dest, out.data_ptr())
     return out
 
 
 def bucket_rank(key_s: torch.Tensor) -> torch.Tensor:
     """int32 rank of every row within its run of equal int32 keys."""
-    if not registry.on_cuda(key_s):
+    dev = registry.device_index(key_s)
+    if dev < 0:
         return plain_bucket_rank(key_s)
     registry.require(key_s, (torch.int32,), "bucket_rank: key_s")
-    n = int(key_s.shape[0])
+    n = key_s.shape[0]
     if n >= 2**31:
         raise ValueError("bucket_rank: ranks are int32, so n must be below 2^31")
-    out = torch.empty((n,), dtype=torch.int32, device=key_s.device)
+    out = key_s.new_empty(n)
     if n == 0:
         return out
-    lib = registry.library("route")
-    scratch = torch.empty((lib.mz_bucket_rank_scratch_bytes(n),), dtype=torch.uint8,
-                          device=key_s.device)
+    scratch = key_s.new_empty(registry.c_fn("mz_bucket_rank_scratch_bytes")(n),
+                              dtype=torch.uint8)
     registry.launch("bucket_rank", (key_s,), (n,))
-    with registry.on_device(key_s.device) as stream:
-        err = lib.mz_bucket_rank(registry.ptr(key_s), n, registry.ptr(out),
-                                 registry.ptr(scratch), stream)
-    registry.check(err, "bucket_rank")
+    registry.run("mz_bucket_rank", dev, key_s.data_ptr(), n, out.data_ptr(), scratch.data_ptr())
     return out

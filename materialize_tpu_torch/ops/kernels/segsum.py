@@ -41,27 +41,26 @@ def run_sum(run_start: torch.Tensor, cols: tuple) -> tuple:
     cols = tuple(cols)
     if not cols:
         return ()
-    if not registry.on_cuda(run_start, *cols):
+    dev = registry.device_index(run_start, *cols)
+    if dev < 0:
         return plain_run_sum(run_start, cols)
     registry.require(run_start, (torch.bool,), "run_sum: run_start")
-    n = int(run_start.shape[0])
+    n = run_start.shape[0]
     for c in cols:
         if c.dtype.is_floating_point:
             raise NotImplementedError("run_sum on the card takes integer columns only")
         registry.require(c, _INT_COLS, "run_sum: column")
-        if int(c.shape[0]) != n:
+        if c.shape[0] != n:
             raise ValueError("run_sum: columns must match run_start in length")
     out = tuple(torch.empty_like(c) for c in cols)
     if n == 0:
         return out
-    lib = registry.library("run_sum")
+    # one scratch for every column: the launches run in stream order
+    width = max(c.element_size() for c in cols)
+    scratch = run_start.new_empty(registry.c_fn("mz_run_sum_scratch_bytes")(n, width),
+                                  dtype=torch.uint8)
     registry.launch("run_sum", (run_start, cols), (len(cols), n))
-    with registry.on_device(run_start.device) as stream:
-        for c, o in zip(cols, out):
-            width = c.element_size()
-            scratch = torch.empty((lib.mz_run_sum_scratch_bytes(n, width),), dtype=torch.uint8,
-                                  device=c.device)
-            err = lib.mz_run_sum(registry.ptr(run_start), registry.ptr(c), n, width,
-                                 registry.ptr(o), registry.ptr(scratch), stream)
-            registry.check(err, "run_sum")
+    for c, o in zip(cols, out):
+        registry.run("mz_run_sum", dev, run_start.data_ptr(), c.data_ptr(), n, c.element_size(),
+                     o.data_ptr(), scratch.data_ptr())
     return out

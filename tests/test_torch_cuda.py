@@ -7,13 +7,24 @@ them; tests/conftest.py imports jax, hence `--noconftest` there:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import importlib.util
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from materialize_tpu_torch.ops.kernels import permute, probe, registry, route, segsum
+
+
+def _chip_smoke():
+    """chip_smoke.py, whose kernel cases these tests share."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _take_cols(rng, n):
@@ -80,6 +91,15 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_multi_take_of_more_columns_than_one_launch_takes(cuda_device):
+    cols, idx = _chip_smoke().wide_take_case(np.random.default_rng(2))
+    cols = tuple(torch.from_numpy(c).to(cuda_device) for c in cols)
+    idx = torch.from_numpy(idx).to(cuda_device)
+    for g, w in zip(permute.multi_take(cols, idx), permute.plain_multi_take(cols, idx)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_cuda_run_sum_refuses_float_columns(cuda_device):
     rs = torch.ones(4, dtype=torch.bool, device=cuda_device)
     with pytest.raises(NotImplementedError):
@@ -130,3 +150,50 @@ def test_kernels_launch_on_their_tensors_device_from_another_thread():
     assert not t.is_alive()
     assert not errors, errors
     assert all(registry.LAUNCHES[k] > 0 for k in registry.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_probe2_every_branch_equals_plain(cuda_device, side):
+    """The staged probe2 at chip_smoke.py's cases for every branch of its
+    kernel: a window that fits, one too large, all-equal padding tiles,
+    unsorted tiles, ties on hi broken on lo, a ragged last tile, n = 1,
+    m = 1, m below a tile below n, and negative queries."""
+    for name, arrays in _chip_smoke().probe2_cases(np.random.default_rng(3)).items():
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in arrays]
+        got = probe.probe2(*t, side)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.plain_searchsorted2(*t, side)), name
+
+
+@pytest.mark.cuda
+def test_cuda_launch_runs_on_the_current_stream(cuda_device):
+    """A kernel launched inside `torch.cuda.stream(s)` runs on `s`: it sees a
+    write queued on `s` behind a long sleep, which it would race on another
+    stream. The raw handle the launch path takes is the stream's own."""
+    dev = torch.cuda.current_device()
+    h = torch.zeros(1 << 20, dtype=torch.int64, device=cuda_device)
+    new = torch.arange(1 << 20, dtype=torch.int64, device=cuda_device) * 4093  # below 2^32
+    s = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        assert torch._C._cuda_getCurrentRawStream(dev) == torch.cuda.current_stream(dev).cuda_stream
+        assert torch.cuda.current_stream(dev).cuda_stream == s.cuda_stream
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of device cycles
+        h.copy_(new)
+        got = route.route_dest(h, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, route.plain_route_dest(new, 7))
+
+
+@pytest.mark.cuda
+def test_cuda_launch_path_still_refuses_bad_input(cuda_device):
+    h = torch.arange(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        route.route_dest(h.to(torch.int32), 4)  # wrong dtype
+    with pytest.raises(ValueError):
+        probe.probe(h, h.cpu())  # mixed devices
+    with pytest.raises(ValueError):
+        probe.probe(h, h[::2])  # not contiguous
+    with pytest.raises(RuntimeError):  # an error the C side returns
+        registry.run("mz_multi_take", h.get_device(), None, None, 0, 8, h.data_ptr(), 8, 8)
