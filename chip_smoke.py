@@ -12,12 +12,16 @@ a machine with one card), whose exchange runs the `route_dest` and
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels from materialize_tpu_torch/csrc/;
 3. kernel edge cases: every kernel against its plain PyTorch version,
-   `probe2` at cases that reach every branch of its kernel;
+   `probe` and `probe2` at cases that reach every branch of their tile
+   kernel, `run_sum` at tile edges, mixed widths and more columns than one
+   launch takes, and from four threads at once, each on its own stream;
 4. Q3: generate the tables, hydrate, one warm-up tick that also retracts
    some customers (so the customer delta path runs), then the churn ticks
    at frac = 0.02, timed; on a capacity overflow everything reruns with
    doubled capacities. The launch counters are zeroed just before and read
-   just after; every kernel must have launched;
+   just after; every kernel must have launched. The branch mix of the
+   largest `probe` call (its tiles by the kernel branch they take) is
+   printed;
 5. kernels at the main path's shapes: each kernel's largest call of phase 4
    is replayed on the same inputs against its plain version (exact
    equality), and timed with CUDA events beside the plain version and, where
@@ -209,6 +213,15 @@ def edge_cases(device) -> int:
             ints = (t(rng.integers(-(1 << 62), 1 << 62, n)),
                     t(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)))
             check("run_sum", segsum.run_sum(t(rs), ints), segsum.plain_run_sum(t(rs), ints))
+    shapes = kernel_shapes()
+    for name, (rs, cols) in run_sum_cases(rng, *shapes["run_sum"]).items():
+        cols = tuple(t(c) for c in cols)
+        check(f"run_sum ({name})", segsum.run_sum(t(rs), cols),
+              segsum.plain_run_sum(t(rs), cols))
+    for name, ok in run_sum_concurrent(device).items():
+        if not ok:
+            raise AssertionError(f"kernel run_sum differs from its plain version ({name})")
+        n_checks += 1
     cols, idx = wide_take_case(rng)
     cols, idx = tuple(t(c) for c in cols), t(idx)
     check("multi_take", permute.multi_take(cols, idx), permute.plain_multi_take(cols, idx))
@@ -220,6 +233,10 @@ def edge_cases(device) -> int:
     check("run_sum", segsum.run_sum(t(rs), (col,)), segsum.plain_run_sum(t(rs), (col,)))
 
     probe2_branches(t, check, rng)
+    for name, (a, q) in probe_cases(rng, *shapes["probe"]).items():
+        for side in ("left", "right"):
+            check(f"probe ({name})", probe.probe(t(a), t(q), side),
+                  probe.plain_searchsorted(t(a), t(q), side))
 
     # route_dest over u32 hashes with 0, 2^31 and PAD_HASH; bucket_rank over
     # sorted, all-dead, one-run and unsorted keys
@@ -248,10 +265,190 @@ def wide_take_case(rng):
     return cols + (rng.random(5000) < 0.5,), rng.integers(-3, 5003, 7000)
 
 
-def probe2_cases(rng) -> dict:
+def kernel_shapes() -> dict:
+    """The tile kernels' shapes as built: `probe` and `probe2` (queries a
+    thread, rows of `a` a block stages), `run_sum` (rows a tile, columns a
+    launch)."""
+    from materialize_tpu_torch.ops.kernels import registry
+
+    f, g = registry.c_fn("mz_probe_shape"), registry.c_fn("mz_run_sum_shape")
+    return {"probe": (f(0, 0), f(0, 1)), "probe2": (f(1, 0), f(1, 1)),
+            "run_sum": (g(0), g(1))}
+
+
+def probe_cases(rng, items: int, window: int) -> dict:
+    """probe's inputs (numpy `a`, `q`; `a` sorted) that reach every branch of
+    its tile kernel (csrc/probe.cu) with `items` queries a thread (tiles of
+    256 * items, 32 * items a warp) and `window` rows of `a` staged by a
+    block."""
+    pad = 0xFFFFFFFF
+    tile, sub = 256 * items, 32 * items
+
+    def spread(n, lo=0, hi=1 << 32, n_pad=0):
+        x = np.sort(rng.integers(lo, hi, n))
+        x[n - n_pad:] = pad
+        return x
+
+    # one tile whose first warp spans 8 windows of `a` and whose other warps
+    # sit close together: a wide window, sparse queries and dense ones
+    a_mixed = np.arange(16 * window, dtype=np.int64) * 4
+    q_mixed = np.concatenate([np.linspace(0, 4 * 8 * window, sub).astype(np.int64),
+                              4 * 9 * window + np.arange(tile - sub)])
+    counts = np.where(rng.random(1 << 16) < 0.1, rng.integers(0, 4, 1 << 16), 0)
+    cum = np.cumsum(counts)
+    dup_a = np.sort(rng.integers(0, 300, 40 * tile))
+    neg_q = np.sort(rng.integers(-(1 << 40), 1 << 10, 3 * tile))
+    return {
+        "padding tiles": (spread(1 << 18, n_pad=1 << 17), spread(5 * tile, n_pad=4 * tile)),
+        "window fits": (spread(8 * window), spread(16 * tile)),
+        "wide, dense (stride 2 or 3)": (spread(8 * window), spread(4 * tile)),
+        "wide, one sparse warp": (a_mixed, q_mixed),
+        "wide, sparse": (spread(1 << 20), spread(3000)),
+        "unsorted": (spread(50_000, hi=1 << 16), rng.integers(-2, 1 << 16, 9000)),
+        "duplicate runs across warps": (dup_a, np.sort(rng.integers(-1, 302, 4 * tile))),
+        "prefix sum, arange queries": (cum, np.arange(int(cum[-1]) + 2 * tile)),
+        "ragged last tile": (spread(6000, hi=1 << 20), spread(5 * tile + 7, hi=1 << 20)),
+        "n = 1": (np.array([7]), spread(3 * tile, hi=16)),
+        "m = 1": (spread(10_000, hi=1 << 10), np.array([500])),
+        "m < tile < n": (spread(10_000, hi=64), np.sort(rng.integers(0, 64, 100))),
+        "negative queries": (spread(20_000, hi=1 << 10), neg_q),
+    }
+
+
+def run_sum_cases(rng, tile: int, max_cols: int) -> dict:
+    """run_sum's inputs (numpy run starts and columns) at the edges of its
+    one-pass scan (csrc/run_sum.cu) with tiles of `tile` rows and `max_cols`
+    columns a launch."""
+
+    def cols(n, widths="86"):
+        out = []
+        for w in widths:
+            if w == "8":
+                out.append(rng.integers(-(1 << 62), 1 << 62, n))
+            else:
+                out.append(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32))
+        return tuple(out)
+
+    def starts(n, p):
+        rs = rng.random(n) < p
+        rs[0] = True
+        return rs
+
+    n = 5 * tile + 3
+    one_run = np.arange(n) == 0
+    at_edges = np.arange(n) % tile == 0
+    late = starts(n, 0.01)
+    late[: tile + 5] = False
+    tail = starts(1 << 21, 0.2)
+    tail[1 << 19:] = False
+    tail[1 << 19] = True  # trailing padding: one run of 1.5 M rows
+    big = np.full(n, np.iinfo(np.int64).max - 3)
+    cases = {
+        "one run over 5 tiles": (one_run, cols(n)),
+        "runs end at tile edges": (at_edges, cols(n)),
+        "rows before the first run start": (late, cols(n)),
+        "n = tile - 1": (starts(tile - 1, 0.05), cols(tile - 1)),
+        "n = tile": (starts(tile, 0.05), cols(tile)),
+        "n = tile + 1": (starts(tile + 1, 0.05), cols(tile + 1)),
+        "n = 1": (np.array([True]), cols(1)),
+        "mixed widths, k = 3": (starts(n, 0.001), cols(n, "484")),
+        "more columns than one launch": (starts(n, 0.01), cols(n, "84" * (max_cols // 2 + 2))),
+        "wrapping sums": (one_run, (big, np.full(n, (1 << 31) - 5, dtype=np.int32))),
+        "trailing padding run": (tail, cols(1 << 21, "8")),
+    }
+    return cases
+
+
+def run_sum_concurrent(device, n_threads: int = 4, reps: int = 5) -> dict:
+    """run_sum called from `n_threads` threads at once, each on its own
+    stream of one device, `reps` times each; every result must equal the
+    plain version (the look-back scratch belongs to its call). Returns
+    {thread name: all equal}."""
+    import threading
+
+    from materialize_tpu_torch.ops.kernels import segsum
+
+    rng = np.random.default_rng(7)
+    inputs = []
+    for i in range(n_threads):
+        n = (1 << 20) + 1000 * i
+        rs = rng.random(n) < 0.001 * (i + 1)
+        rs[0] = i % 2 == 0  # two threads also have rows before the first run start
+        vals = (rng.integers(-(1 << 62), 1 << 62, n), rng.integers(-9, 9, n).astype(np.int32))
+        inputs.append((torch.as_tensor(rs, device=device),
+                       tuple(torch.as_tensor(v, device=device) for v in vals)))
+    wants = [segsum.plain_run_sum(rs, vals) for rs, vals in inputs]
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(n_threads)
+    results: dict = {}
+
+    def body(i):
+        rs, vals = inputs[i]
+        stream = torch.cuda.Stream(device=device)
+        ok = True
+        try:
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [segsum.run_sum(rs, vals) for _ in range(reps)]
+            stream.synchronize()
+            ok = all(_equal(out, wants[i]) for out in outs)
+        except Exception as e:  # noqa: BLE001 - reported as a failure
+            ok = False
+            print(f"# run_sum thread {i}: {e!r}", file=sys.stderr)
+        results[f"thread {i}"] = ok
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if len(results) != n_threads:
+        raise AssertionError("run_sum: a concurrent caller did not finish")
+    return results
+
+
+def probe_branch_mix(a: torch.Tensor, q: torch.Tensor, items: int, window: int) -> dict:
+    """How the tiles of one `probe` call split between the branches of its
+    tile kernel (csrc/probe.cu), computed with torch from the call's inputs:
+    unsorted; all-equal (first == last, e.g. PAD_HASH padding); staged (the
+    window between first and last fits `window` rows); sampled (it does not:
+    the block stages every stride-th row, and each query then searches the
+    stride - 1 rows between two samples). `between` counts the queries of
+    staged and sampled tiles that differ from the tile's first and last."""
+    m = q.numel()
+    tile = 256 * items
+    starts = torch.arange(0, m, tile, device=q.device)
+    ends = (starts + tile).clamp(max=m)
+    first, last = q[starts], q[ends - 1]
+    down = torch.nonzero(q[1:] < q[:-1]).flatten() + 1
+    unsorted = torch.zeros(starts.numel(), dtype=torch.bool, device=q.device)
+    unsorted[down[down % tile != 0] // tile] = True
+    width = torch.searchsorted(a, last) - torch.searchsorted(a, first, right=True)
+    equal = ~unsorted & (first == last)
+    staged = ~unsorted & ~equal & (width <= window)
+    sampled = ~unsorted & ~equal & (width > window)
+    stride = (width + window - 1) // window
+    owner = torch.arange(m, device=q.device) // tile
+    inner = (q != first[owner]) & (q != last[owner])
+    return {
+        "tiles": int(starts.numel()), "tile": tile, "window_rows": window,
+        "all_equal": int(equal.sum()), "staged": int(staged.sum()),
+        "sampled": int(sampled.sum()),
+        "unsorted": int(unsorted.sum()),
+        "between_staged": int((inner & staged[owner]).sum()),
+        "between_sampled": int((inner & sampled[owner]).sum()),
+        "staged_rows": int(width[staged].sum()), "sampled_rows": int(width[sampled].sum()),
+        "widest_window": int(width[staged | sampled].max()) if bool((staged | sampled).any())
+        else 0,
+        "largest_stride": int(stride[sampled].max()) if bool(sampled.any()) else 0,
+    }
+
+
+def probe2_cases(rng, items: int, window: int) -> dict:
     """probe2's inputs (numpy `ah, al, qh, ql`; `a` pair-sorted) that reach
-    every branch of its kernel: tiles of 1024 queries, windows of up to 2048
-    rows of `a` (csrc/probe.cu)."""
+    every branch of its tile kernel (csrc/probe.cu) with `items` queries a
+    thread (tiles of 256 * items) and `window` rows of `a` staged by a
+    block."""
     pad = 0xFFFFFFFF
 
     def pairs(n, hi_range, lo_range, n_pad=0):
@@ -260,13 +457,14 @@ def probe2_cases(rng) -> dict:
         order = np.lexsort((lo, hi))
         return hi[order], lo[order]
 
-    tile = 1024
+    tile = 256 * items
     neg_h = rng.integers(-5, 1 << 10, 3 * tile)
     neg_l = rng.integers(-(1 << 40), 8, 3 * tile)
     neg = np.lexsort((neg_l, neg_h))
     cases = {
-        "window fits": (pairs(1 << 16, 1 << 32, 4), pairs(1 << 16, 1 << 32, 4)),
+        "window fits": (pairs(32 * window, 1 << 32, 4), pairs(64 * tile, 1 << 32, 4)),
         "window too large": (pairs(1 << 20, 1 << 32, 1 << 32), pairs(3000, 1 << 32, 1 << 32)),
+        "wide, dense": (pairs(8 * window, 1 << 32, 4), pairs(4 * tile, 1 << 32, 4)),
         "padding tiles": (pairs(1 << 18, 1 << 32, 8, n_pad=1 << 17),
                           pairs(5 * tile, 1 << 32, 8, n_pad=4 * tile)),
         "unsorted": (pairs(50_000, 1 << 16, 4),
@@ -286,7 +484,7 @@ def probe2_branches(t, check, rng) -> None:
     """probe2 at every case of `probe2_cases`, both sides."""
     from materialize_tpu_torch.ops.kernels import probe
 
-    for name, arrays in probe2_cases(rng).items():
+    for name, arrays in probe2_cases(rng, *kernel_shapes()["probe2"]).items():
         ah, al, qh, ql = (t(x) for x in arrays)
         for side in ("left", "right"):
             check(f"probe2 ({name})", probe.probe2(ah, al, qh, ql, side),
@@ -551,9 +749,11 @@ def run_sharded(sf: float, ticks: int, frac: float, n_cust_retract: int, seed: i
     }
 
 
-_OURS = {"scan_tile": "run_sum", "fix_tile": "run_sum", "take_kernel": "multi_take",
-         "probe2_": "probe2", "probe_kernel": "probe", "route_kernel": "route_dest",
-         "tile_max": "bucket_rank", "apply_tile": "bucket_rank"}
+# device kernel names (substrings) of the port's kernels; probe and probe2
+# share one tile kernel template, told apart by its key type
+_OURS = {"run_sum_kernel": "run_sum", "take_kernel": "multi_take", "::Key2": "probe2",
+         "::Key1": "probe", "route_kernel": "route_dest", "tile_max": "bucket_rank",
+         "apply_tile": "bucket_rank"}
 
 
 def device_breakdown(prof, wall_s: float) -> dict:
@@ -688,7 +888,7 @@ def check_largest(name: str, samples: dict):
     torch.cuda.synchronize()
     if not _equal(got, want):
         raise AssertionError(f"kernel {name} differs from its plain version at {shape}")
-    if name in ("probe2", "route_dest"):  # yardsticks must compute the same function
+    if name in ("probe", "probe2", "route_dest"):  # yardsticks must compute the same function
         if not torch.equal(fns[2]().to(want.dtype), want):
             raise AssertionError(f"{name} library yardstick disagrees")
     return shape, fns, _max_abs_err(got, want)
@@ -775,6 +975,9 @@ def main() -> int:
     for k in SINGLE_PATH:
         shapes = sorted(samples[k]["shapes"].items(), key=lambda kv: -kv[1])
         print(f"#   {k} shapes in the timed ticks (shape: calls): {shapes[:12]}")
+    _size, shape, (a, q, _side) = samples["probe"]["largest"]
+    mix = probe_branch_mix(a, q, *kernel_shapes()["probe"])
+    phase(f"probe branch mix at its largest call {shape}: {json.dumps(mix)}")
     rows = kernel_table(SINGLE_PATH, samples, launches)
 
     sh = run_sharded(sf=1.0, ticks=5, frac=0.02, n_cust_retract=1000)

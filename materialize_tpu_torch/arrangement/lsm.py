@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.consolidate import merge_consolidate
-from ..ops.join import join_materialize, join_total
+from ..ops.join import join_with_total
 from ..ops.reduce import AccumState, lookup_accums, merge_consolidate_accums
 from ..repr.batch import UpdateBatch
 
@@ -78,12 +78,15 @@ def lsm_insert(lsm: LsmBatches, delta: UpdateBatch, tick: int, ratio: int = 4):
 
 
 def lsm_join(probe: UpdateBatch, lsm: LsmBatches, out_caps: tuple):
-    """Join a probe batch against every level. Returns (outs list, overflow)."""
+    """Join a probe batch against every level. Returns (outs list, overflow).
+
+    Each level's match ranges are searched once, for its overflow total and
+    its materialization (the reference's jit merges the two searches)."""
     outs = []
     overflow = _false(probe.device)
     for level, cap in zip(lsm.levels, out_caps):
-        total = join_total(probe, level)
-        outs.append(join_materialize(probe, level, cap))
+        total, out = join_with_total(probe, level, cap)
+        outs.append(out)
         overflow = overflow | (total > cap)
     return outs, overflow
 

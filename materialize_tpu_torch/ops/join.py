@@ -45,6 +45,20 @@ def join_materialize(
     with `join_total`).
     """
     lo, counts = _probe_ranges(probe, arr)
+    return _materialize_ranges(probe, arr, lo, counts, out_cap, swap)
+
+
+def join_with_total(
+    probe: UpdateBatch, arr: UpdateBatch, out_cap: int, swap: bool = False
+) -> tuple:
+    """(`join_total`, `join_materialize`) of one (probe, arr) pair, with the
+    match ranges searched once for both."""
+    lo, counts = _probe_ranges(probe, arr)
+    return counts.sum(), _materialize_ranges(probe, arr, lo, counts, out_cap, swap)
+
+
+def _materialize_ranges(probe: UpdateBatch, arr: UpdateBatch, lo, counts, out_cap: int,
+                        swap: bool) -> UpdateBatch:
     cum = torch.cumsum(counts, 0)
     total = cum[-1]
 

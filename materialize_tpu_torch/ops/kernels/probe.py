@@ -6,12 +6,14 @@ of match counts); `probe2` searches (hi, lo) pairs compared
 lexicographically (the merge interleaves). Both return int64 insertion
 points in [0, n].
 
-On a CUDA tensor each wrapper launches its kernel in `csrc/probe.cu`:
-`probe` runs the reference's unrolled loop, one thread per query; `probe2`
-searches tiles of sorted queries in a window of `a` staged in shared memory
-(see the note there for what bounds each). On the CPU each runs the plain
-version below: the unrolled ceil(log2 n) + 1 compare/select steps of the JAX
-reference, step for step.
+On a CUDA tensor each wrapper launches one tile kernel of `csrc/probe.cu`,
+templated over the key (one int64 column, or the pair): tiles of sorted
+queries search the rows of `a` between their first and last query, staged
+in shared memory when they fit, else through a staged sample of them that
+narrows each query to a few cache lines; unsorted tiles run the reference's
+loop (see the note there for what bounds it). On the CPU each runs the
+plain version below: the unrolled ceil(log2 n) + 1 compare/select steps of
+the JAX reference, step for step.
 """
 
 from __future__ import annotations
@@ -67,7 +69,10 @@ def _side_code(side: str) -> int:
 
 
 def probe(a: torch.Tensor, q: torch.Tensor, side: str = "left") -> torch.Tensor:
-    """Insertion points of q[m] in the sorted a[n] (np.searchsorted semantics)."""
+    """Insertion points of q[m] in the sorted a[n] (np.searchsorted semantics).
+
+    The queries may come in any order; sorted ones, as every caller gives
+    them, take the kernel's staged branches."""
     code = _side_code(side)
     dev = registry.device_index(a, q)
     if dev < 0:

@@ -5,16 +5,22 @@ over a canonically ordered batch, produce per column
 ``out[i] = run_total if run_start[i] else 0``. Rows before the first run
 start belong to no run.
 
-On a CUDA tensor the wrapper launches `csrc/run_sum.cu` (a backward
-segmented scan; see the note there) once per column. It takes int32 and
-int64 columns, whose wrapping sums are exact in any order. A float column
-on the card raises NotImplementedError: Q3 never sums floats, and float
-sums on the card wait for the slice that brings float aggregates. On the
-CPU the wrapper runs the plain version: the reference's segment-sum chain
-(a cumsum of run starts, a scatter-add, a gather).
+On a CUDA tensor the wrapper launches `csrc/run_sum.cu` once for all the
+call's columns: a single-pass backward segmented scan with decoupled
+look-back (see the note there), which reads the flags once and every column
+once. Its look-back state is scratch of the call: one allocation, zeroed by
+one memset on the call's stream, so concurrent callers on other streams
+never share it. It takes int32 and int64 columns, mixed, whose wrapping
+sums are exact in any order. A float column on the card raises
+NotImplementedError: Q3 never sums floats, and float sums on the card wait
+for the slice that brings float aggregates. On the CPU the wrapper runs the
+plain version: the reference's segment-sum chain (a cumsum of run starts, a
+scatter-add, a gather).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -55,12 +61,13 @@ def run_sum(run_start: torch.Tensor, cols: tuple) -> tuple:
     out = tuple(torch.empty_like(c) for c in cols)
     if n == 0:
         return out
-    # one scratch for every column: the launches run in stream order
-    width = max(c.element_size() for c in cols)
-    scratch = run_start.new_empty(registry.c_fn("mz_run_sum_scratch_bytes")(n, width),
+    k = len(cols)
+    scratch = run_start.new_empty(registry.c_fn("mz_run_sum_scratch_bytes")(n, k),
                                   dtype=torch.uint8)
-    registry.launch("run_sum", (run_start, cols), (len(cols), n))
-    for c, o in zip(cols, out):
-        registry.run("mz_run_sum", dev, run_start.data_ptr(), c.data_ptr(), n, c.element_size(),
-                     o.data_ptr(), scratch.data_ptr())
+    # the columns' pointers, their outputs' pointers, their widths: one array
+    ptrs = (ctypes.c_int64 * (3 * k))(*[c.data_ptr() for c in cols],
+                                      *[o.data_ptr() for o in out],
+                                      *[c.element_size() for c in cols])
+    registry.launch("run_sum", (run_start, cols), (k, n))
+    registry.run("mz_run_sum", dev, run_start.data_ptr(), ptrs, k, n, scratch.data_ptr())
     return out

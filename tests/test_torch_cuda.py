@@ -156,14 +156,61 @@ def test_kernels_launch_on_their_tensors_device_from_another_thread():
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_cuda_probe2_every_branch_equals_plain(cuda_device, side):
     """The staged probe2 at chip_smoke.py's cases for every branch of its
-    kernel: a window that fits, one too large, all-equal padding tiles,
+    kernel: a window that fits, one too large, a dense wide one, all-equal
+    padding tiles,
     unsorted tiles, ties on hi broken on lo, a ragged last tile, n = 1,
     m = 1, m below a tile below n, and negative queries."""
-    for name, arrays in _chip_smoke().probe2_cases(np.random.default_rng(3)).items():
+    smoke = _chip_smoke()
+    cases = smoke.probe2_cases(np.random.default_rng(3), *smoke.kernel_shapes()["probe2"])
+    for name, arrays in cases.items():
         t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in arrays]
         got = probe.probe2(*t, side)
         torch.cuda.synchronize()
         assert torch.equal(got, probe.plain_searchsorted2(*t, side)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_probe_every_branch_equals_plain(cuda_device, side):
+    """The tile-staged probe at chip_smoke.py's cases for every branch of its
+    kernel, at the kernel's own tile and window: all-equal padding tiles, a
+    window that fits, wide windows searched through a staged sample (dense,
+    with one sparse warp, sparse), unsorted tiles, duplicate runs across
+    warps, a prefix sum searched by `arange`, a ragged last tile, n = 1,
+    m = 1, m below a tile below n, and negative queries."""
+    smoke = _chip_smoke()
+    cases = smoke.probe_cases(np.random.default_rng(4), *smoke.kernel_shapes()["probe"])
+    for name, (a, q) in cases.items():
+        a, q = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in (a, q))
+        got = probe.probe(a, q, side)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.plain_searchsorted(a, q, side)), name
+
+
+@pytest.mark.cuda
+def test_cuda_run_sum_edge_cases_equal_plain(cuda_device):
+    """The one-pass run_sum at chip_smoke.py's cases: a run over 5 tiles, runs
+    ending at tile edges, rows before the first run start, n = tile - 1,
+    tile, tile + 1 and 1, mixed int32/int64 columns, more columns than one
+    launch takes, wrapping sums, and a trailing padding run of 1.5 M rows."""
+    smoke = _chip_smoke()
+    cases = smoke.run_sum_cases(np.random.default_rng(5), *smoke.kernel_shapes()["run_sum"])
+    for name, (rs, cols) in cases.items():
+        rs = torch.from_numpy(rs).to(cuda_device)
+        cols = tuple(torch.from_numpy(c).to(cuda_device) for c in cols)
+        got = segsum.run_sum(rs, cols)
+        torch.cuda.synchronize()
+        for g, w in zip(got, segsum.plain_run_sum(rs, cols)):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_run_sum_from_four_streams_at_once(cuda_device):
+    """Four threads call run_sum at once on one device, each on its own
+    stream: each result equals the plain version, so no call shares another's
+    look-back scratch."""
+    results = _chip_smoke().run_sum_concurrent(cuda_device)
+    assert len(results) == 4 and all(results.values()), results
 
 
 @pytest.mark.cuda
