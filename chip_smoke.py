@@ -14,7 +14,10 @@ a machine with one card), whose exchange runs the `route_dest` and
 3. kernel edge cases: every kernel against its plain PyTorch version,
    `probe` and `probe2` at cases that reach every branch of their tile
    kernel, `run_sum` at tile edges, mixed widths and more columns than one
-   launch takes, and from four threads at once, each on its own stream;
+   launch takes, `bucket_rank` at tile edges, run starts on a tile's first
+   and last rows, a dead tail, unsorted keys and one run over 2,048 tiles,
+   and both look-back scans from four threads at once, each on its own
+   stream;
 4. Q3: generate the tables, hydrate, one warm-up tick that also retracts
    some customers (so the customer delta path runs), then the churn ticks
    at frac = 0.02, timed; on a capacity overflow everything reruns with
@@ -38,10 +41,11 @@ a machine with one card), whose exchange runs the `route_dest` and
 7. the profiler, after every CUDA-event timing (a profiler session can
    slow the process's later launches): each kernel's and library call's
    device time at its largest call (`kernel_device_ms`,
-   `library_device_ms`), then two more churn ticks of each path, for the
-   device time by kernel and the idle share. Then the union of the
-   workers' views and the single path's view must each equal the
-   brute-force `q3_oracle` over the generator's host mirrors, with no
+   `library_device_ms`) and the device events of one wrapper call
+   (`device_events_per_call`, memsets included), then two more churn ticks
+   of each path, for the device time by kernel and the idle share. Then the
+   union of the workers' views and the single path's view must each equal
+   the brute-force `q3_oracle` over the generator's host mirrors, with no
    error rows and no overflow.
 
 It prints the kernel table as one JSON line, then the device line as the
@@ -136,12 +140,13 @@ def in_turns(measure, fa, fb, rounds: int = 2) -> tuple:
     return float(np.median(xa)), float(np.median(xb))
 
 
-def kernel_ms(fn, iters: int = 20) -> float | None:
-    """Mean device time of the CUDA kernels that fn() launches, by the
-    profiler: the kernels' own time, without the gaps in which the host
-    issues the next call (which `time_ms` includes when a call is short).
-    None (not measured) when the profiler caught no device event, or a
-    count that is no multiple of `iters` (it lost some)."""
+def kernel_ms(fn, iters: int = 20) -> tuple:
+    """(mean device time, device events, mean device time by event name) of
+    one fn() call, by the profiler: the kernels' and memsets' own time,
+    without the gaps in which the host issues the next call (which `time_ms`
+    includes when a call is short). Nones (not measured) when the profiler
+    caught no device event, or a count that is no multiple of `iters` (it
+    lost some)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,11 +156,13 @@ def kernel_ms(fn, iters: int = 20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not times or len(times) % iters:
-        return None
-    return sum(times) / 1e3 / iters
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events or len(events) % iters:
+        return None, None, None
+    names: dict = {}
+    for e in events:
+        names[e.name[:60]] = names.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return sum(names.values()), len(events) // iters, names
 
 
 # -- phase 3: edge cases ------------------------------------------------------
@@ -222,6 +229,13 @@ def edge_cases(device) -> int:
         if not ok:
             raise AssertionError(f"kernel run_sum differs from its plain version ({name})")
         n_checks += 1
+    for name, k in bucket_rank_cases(rng, *shapes["bucket_rank"]).items():
+        k = t(k)
+        check(f"bucket_rank ({name})", route.bucket_rank(k), route.plain_bucket_rank(k))
+    for name, ok in bucket_rank_concurrent(device).items():
+        if not ok:
+            raise AssertionError(f"kernel bucket_rank differs from its plain version ({name})")
+        n_checks += 1
     cols, idx = wide_take_case(rng)
     cols, idx = tuple(t(c) for c in cols), t(idx)
     check("multi_take", permute.multi_take(cols, idx), permute.plain_multi_take(cols, idx))
@@ -268,12 +282,12 @@ def wide_take_case(rng):
 def kernel_shapes() -> dict:
     """The tile kernels' shapes as built: `probe` and `probe2` (queries a
     thread, rows of `a` a block stages), `run_sum` (rows a tile, columns a
-    launch)."""
-    from materialize_tpu_torch.ops.kernels import registry
+    launch), `bucket_rank` (rows a tile)."""
+    from materialize_tpu_torch.ops.kernels import registry, route
 
     f, g = registry.c_fn("mz_probe_shape"), registry.c_fn("mz_run_sum_shape")
     return {"probe": (f(0, 0), f(0, 1)), "probe2": (f(1, 0), f(1, 1)),
-            "run_sum": (g(0), g(1))}
+            "run_sum": (g(0), g(1)), "bucket_rank": route.bucket_rank_shape()[:1]}
 
 
 def probe_cases(rng, items: int, window: int) -> dict:
@@ -359,13 +373,76 @@ def run_sum_cases(rng, tile: int, max_cols: int) -> dict:
     return cases
 
 
-def run_sum_concurrent(device, n_threads: int = 4, reps: int = 5) -> dict:
-    """run_sum called from `n_threads` threads at once, each on its own
-    stream of one device, `reps` times each; every result must equal the
-    plain version (the look-back scratch belongs to its call). Returns
-    {thread name: all equal}."""
+def bucket_rank_cases(rng, tile: int) -> dict:
+    """bucket_rank's keys (numpy int32) at the edges of its one-pass scan
+    (csrc/route.cu) with tiles of `tile` rows: the exchange's layout (sorted
+    destinations 0..3, then the dead rows' key 4) around one tile, run starts
+    on a tile's first or last row, short runs before a long dead tail,
+    unsorted keys, a run start at every row, and one run over 2,048 tiles
+    (the longest chain of look-backs)."""
+
+    def dests(n, live=0.5):
+        k = np.sort(rng.integers(0, 4, n))
+        k[int(n * live):] = 4
+        return k
+
+    n = 5 * tile + 3
+    cases = {
+        "n = 1": np.array([3]),
+        "n = tile - 1": dests(tile - 1),
+        "n = tile": dests(tile),
+        "n = tile + 1": dests(tile + 1),
+        "starts on a tile's first row": np.arange(n) // tile,
+        "starts on a tile's last row": (np.arange(n) + 1) // tile,
+        "dead tail after short runs": dests(1 << 19, live=0.002),
+        "long runs, starts mid-tile": np.sort(rng.integers(0, 7, 20 * tile + 5)),
+        "unsorted": rng.integers(0, 5, n),
+        "a run start at every row": np.arange(n),
+        "one run over 2,048 tiles": np.zeros(2048 * tile),
+    }
+    return {name: k.astype(np.int32) for name, k in cases.items()}
+
+
+def concurrent(name: str, kernel, plain, inputs: list, reps: int = 5) -> dict:
+    """kernel(*inputs[i]) called from one thread for each input, all at once,
+    each on its own stream of the inputs' device, `reps` times each; every
+    result must equal plain(*inputs[i]) (a look-back's scratch belongs to its
+    call). Returns {thread name: all equal}."""
     import threading
 
+    wants = [plain(*args) for args in inputs]
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(len(inputs))
+    results: dict = {}
+
+    def body(i):
+        args = inputs[i]
+        stream = torch.cuda.Stream(device=args[0].device)
+        ok = True
+        try:
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [kernel(*args) for _ in range(reps)]
+            stream.synchronize()
+            ok = all(_equal(out, wants[i]) for out in outs)
+        except Exception as e:  # noqa: BLE001 - reported as a failure
+            ok = False
+            print(f"# {name} thread {i}: {e!r}", file=sys.stderr)
+        results[f"thread {i}"] = ok
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(len(inputs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if len(results) != len(inputs):
+        raise AssertionError(f"{name}: a concurrent caller did not finish")
+    return results
+
+
+def run_sum_concurrent(device, n_threads: int = 4) -> dict:
+    """`concurrent` run_sum calls, a mix of int32 and int64 columns of about
+    2^20 rows."""
     from materialize_tpu_torch.ops.kernels import segsum
 
     rng = np.random.default_rng(7)
@@ -377,34 +454,24 @@ def run_sum_concurrent(device, n_threads: int = 4, reps: int = 5) -> dict:
         vals = (rng.integers(-(1 << 62), 1 << 62, n), rng.integers(-9, 9, n).astype(np.int32))
         inputs.append((torch.as_tensor(rs, device=device),
                        tuple(torch.as_tensor(v, device=device) for v in vals)))
-    wants = [segsum.plain_run_sum(rs, vals) for rs, vals in inputs]
-    torch.cuda.synchronize()
-    barrier = threading.Barrier(n_threads)
-    results: dict = {}
+    return concurrent("run_sum", segsum.run_sum, segsum.plain_run_sum, inputs)
 
-    def body(i):
-        rs, vals = inputs[i]
-        stream = torch.cuda.Stream(device=device)
-        ok = True
-        try:
-            with torch.cuda.stream(stream):
-                barrier.wait()
-                outs = [segsum.run_sum(rs, vals) for _ in range(reps)]
-            stream.synchronize()
-            ok = all(_equal(out, wants[i]) for out in outs)
-        except Exception as e:  # noqa: BLE001 - reported as a failure
-            ok = False
-            print(f"# run_sum thread {i}: {e!r}", file=sys.stderr)
-        results[f"thread {i}"] = ok
 
-    threads = [threading.Thread(target=body, args=(i,)) for i in range(n_threads)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=300)
-    if len(results) != n_threads:
-        raise AssertionError("run_sum: a concurrent caller did not finish")
-    return results
+def bucket_rank_concurrent(device, n_threads: int = 4) -> dict:
+    """`concurrent` bucket_rank calls of about 2^19 rows: the exchange's
+    sorted destinations with a dead tail, and (odd threads) one long run."""
+    from materialize_tpu_torch.ops.kernels import route
+
+    rng = np.random.default_rng(8)
+    inputs = []
+    for i in range(n_threads):
+        n = (1 << 19) + 1000 * i
+        k = np.sort(rng.integers(0, 4, n))
+        k[n // (2 + i):] = 4
+        if i % 2:
+            k[:] = i
+        inputs.append((torch.as_tensor(k.astype(np.int32), device=device),))
+    return concurrent("bucket_rank", route.bucket_rank, route.plain_bucket_rank, inputs)
 
 
 def probe_branch_mix(a: torch.Tensor, q: torch.Tensor, items: int, window: int) -> dict:
@@ -752,20 +819,27 @@ def run_sharded(sf: float, ticks: int, frac: float, n_cust_retract: int, seed: i
 # device kernel names (substrings) of the port's kernels; probe and probe2
 # share one tile kernel template, told apart by its key type
 _OURS = {"run_sum_kernel": "run_sum", "take_kernel": "multi_take", "::Key2": "probe2",
-         "::Key1": "probe", "route_kernel": "route_dest", "tile_max": "bucket_rank",
-         "apply_tile": "bucket_rank"}
+         "::Key1": "probe", "route_kernel": "route_dest", "bucket_rank_kernel": "bucket_rank"}
 
 
 def device_breakdown(prof, wall_s: float) -> dict:
-    """Device time by kernel name over the profiled ticks, and the idle share."""
+    """Device time by kernel name over the profiled ticks, and the idle share.
+    `port_kernels_ms` holds kernels only; the memsets, among them those
+    that zero the scratch of `run_sum` and `bucket_rank`, are counted apart
+    (`memsets`: count, ms)."""
     from torch.autograd import DeviceType
 
     by_name: dict = {}
     n_events = 0
+    memsets = [0, 0.0]
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n_events += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            if "Memset" in e.name:
+                memsets[0] += 1
+                memsets[1] += ms
     busy = sum(by_name.values())
     if busy == 0.0:
         return {"device_ms": "not measured", "wall_ms": wall_s * 1e3}
@@ -779,7 +853,7 @@ def device_breakdown(prof, wall_s: float) -> dict:
     return {
         "ticks": PROFILED_TICKS, "wall_ms": wall_s * 1e3, "device_busy_ms": busy,
         "device_events": n_events,
-        "idle_share": 1.0 - busy / (wall_s * 1e3), "port_kernels_ms": ours,
+        "idle_share": 1.0 - busy / (wall_s * 1e3), "port_kernels_ms": ours, "memsets": memsets,
         "top": [[name[:90], ms] for name, ms in top],
     }
 
@@ -931,9 +1005,10 @@ def device_times(rows: list, samples: dict) -> None:
     for row in rows:
         _size, _shape, args = samples[row["name"]]["largest"]
         kern, _plain, library, _moved = replay(row["name"], args)
-        row["kernel_device_ms"] = kernel_ms(kern)
-        row["library_device_ms"] = kernel_ms(library) if library is not None else None
-        phase(f"{row['name']}: device {row['kernel_device_ms']} ms, library device "
+        row["kernel_device_ms"], row["device_events_per_call"], _ = kernel_ms(kern)
+        row["library_device_ms"] = kernel_ms(library)[0] if library is not None else None
+        phase(f"{row['name']}: device {row['kernel_device_ms']} ms in "
+              f"{row['device_events_per_call']} device events a call, library device "
               f"{row['library_device_ms']} ms")
 
 

@@ -66,8 +66,8 @@ _SIGNATURES = {
     "mz_run_sum_scratch_bytes": ((_I64, _INT), _I64),
     "mz_run_sum": ((_INT, _VP, _VP, _INT, _I64, _VP, _VP), _INT),
     "mz_route_dest": ((_INT, _VP, _I64, _INT, _VP, _VP), _INT),
-    "mz_bucket_rank_scratch_bytes": ((_I64,), _I64),
-    "mz_bucket_rank": ((_INT, _VP, _I64, _VP, _VP, _VP), _INT),
+    "mz_bucket_rank_shape": ((_INT,), _INT),
+    "mz_bucket_rank": ((_INT, _VP, _I64, _VP, _VP, _I64, _VP), _INT),
 }
 
 _FNS: dict = {}  # C entry point name -> its bound function, filled once by the build

@@ -12,10 +12,15 @@ buckets, one per destination worker:
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/route.cu`; on the
 CPU it runs the plain version below. An empty input returns an empty int32
-tensor and launches nothing.
+tensor and launches nothing. `bucket_rank` is one launch of a single-pass
+max-scan with a decoupled look-back (see the note there); its scratch, a
+ticket and a status word a tile, belongs to the call, so concurrent callers
+on other streams never share it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -59,6 +64,24 @@ def route_dest(hashes: torch.Tensor, n_dest: int) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def bucket_rank_shape() -> tuple:
+    """(rows a tile, int32 words of scratch a tile) of the built
+    `bucket_rank` kernel, read from C once."""
+    f = registry.c_fn("mz_bucket_rank_shape")
+    return f(0), f(1)
+
+
+def bucket_rank_scratch_words(n: int, shape: tuple | None = None) -> int:
+    """int32 words of scratch a `bucket_rank` call of n rows takes: the
+    ticket and a status word a tile, each `stride` words from the next, for
+    the (tile, stride) of `shape` (default: the built kernel's); none for a
+    call of one tile. The C entry point refuses less."""
+    tile, stride = shape or bucket_rank_shape()
+    nt = -(-n // tile)
+    return (1 + nt) * stride if nt > 1 else 0
+
+
 def bucket_rank(key_s: torch.Tensor) -> torch.Tensor:
     """int32 rank of every row within its run of equal int32 keys."""
     dev = registry.device_index(key_s)
@@ -71,8 +94,9 @@ def bucket_rank(key_s: torch.Tensor) -> torch.Tensor:
     out = key_s.new_empty(n)
     if n == 0:
         return out
-    scratch = key_s.new_empty(registry.c_fn("mz_bucket_rank_scratch_bytes")(n),
-                              dtype=torch.uint8)
+    words = bucket_rank_scratch_words(n)  # zeroed by the C side
+    scratch = key_s.new_empty(words) if words else None
     registry.launch("bucket_rank", (key_s,), (n,))
-    registry.run("mz_bucket_rank", dev, key_s.data_ptr(), n, out.data_ptr(), scratch.data_ptr())
+    registry.run("mz_bucket_rank", dev, key_s.data_ptr(), n, out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), words)
     return out

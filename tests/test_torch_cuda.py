@@ -214,6 +214,30 @@ def test_cuda_run_sum_from_four_streams_at_once(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_bucket_rank_edge_cases_equal_plain(cuda_device):
+    """The one-pass bucket_rank at chip_smoke.py's cases: n = 1, tile - 1,
+    tile, tile + 1, run starts on a tile's first or last row, a dead tail
+    after short runs, long runs, unsorted keys, a run start at every row, and
+    one run over 2,048 tiles."""
+    smoke = _chip_smoke()
+    cases = smoke.bucket_rank_cases(np.random.default_rng(6),
+                                    *smoke.kernel_shapes()["bucket_rank"])
+    for name, k in cases.items():
+        k = torch.from_numpy(k).to(cuda_device)
+        got = route.bucket_rank(k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, route.plain_bucket_rank(k)), name
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_rank_from_four_streams_at_once(cuda_device):
+    """Four threads call bucket_rank at once on one device, each on its own
+    stream, as the mesh's workers do: each result equals the plain version."""
+    results = _chip_smoke().bucket_rank_concurrent(cuda_device)
+    assert len(results) == 4 and all(results.values()), results
+
+
+@pytest.mark.cuda
 def test_cuda_launch_runs_on_the_current_stream(cuda_device):
     """A kernel launched inside `torch.cuda.stream(s)` runs on `s`: it sees a
     write queued on `s` behind a long sleep, which it would race on another
@@ -244,3 +268,9 @@ def test_cuda_launch_path_still_refuses_bad_input(cuda_device):
         probe.probe(h, h[::2])  # not contiguous
     with pytest.raises(RuntimeError):  # an error the C side returns
         registry.run("mz_multi_take", h.get_device(), None, None, 0, 8, h.data_ptr(), 8, 8)
+    with pytest.raises(RuntimeError):  # ranks are int32: the C side refuses n >= 2^31
+        registry.run("mz_bucket_rank", h.get_device(), h.data_ptr(), 2**31, h.data_ptr(), None, 0)
+    n = route.bucket_rank_shape()[0] + 1  # two tiles: a ticket and two status words
+    with pytest.raises(RuntimeError):  # the C side refuses scratch smaller than that
+        registry.run("mz_bucket_rank", h.get_device(), h.data_ptr(), n, h.data_ptr(), h.data_ptr(),
+                     route.bucket_rank_scratch_words(n) - 1)

@@ -99,6 +99,13 @@ def test_bucket_rank_plain_equals_jax(n, kind):
     _same(got, _pallas_bucket_rank(jnp.asarray(k)))
 
 
+@pytest.mark.parametrize("n, words", [(1, 0), (7, 0), (8, 0), (9, 3 * 4), (17, 4 * 4)])
+def test_bucket_rank_scratch_words(n, words):
+    """A ticket and a status word a tile, 4 words apart at tiles of 8 rows;
+    none for a call of one tile."""
+    assert route.bucket_rank_scratch_words(n, (8, 4)) == words
+
+
 def test_route_wrappers_on_empty_and_bad_input():
     registry.reset_launches()
     empty = torch.empty(0, dtype=torch.int64)
