@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Two paths run at TPC-H scale factor 1: the single-GPU Q3 maintenance tick
-(materialize_tpu_torch/models/fused_q3.py), and the same tick sharded over
-an in-process mesh of 4 workers on the card's devices (all 4 on `cuda:0` on
-a machine with one card), whose exchange runs the `route_dest` and
-`bucket_rank` kernels. Phases, each of which fails the run on any error:
+Three paths run: the single-GPU Q3 maintenance tick at TPC-H scale factor 1
+(materialize_tpu_torch/models/fused_q3.py); the same tick sharded over an
+in-process mesh of 4 workers on the card's devices (all 4 on `cuda:0` on a
+machine with one card), whose exchange runs the `route_dest` and
+`bucket_rank` kernels; and the auction views of models/auction.py through
+the fused renderer (dataflow/fused.py). Phases, each of which fails the run
+on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels from materialize_tpu_torch/csrc/;
@@ -38,7 +40,17 @@ a machine with one card), whose exchange runs the `route_dest` and
    after, and all six kernels must have launched. Every kernel is then
    replayed against its plain version at its largest call of this phase,
    and `route_dest` and `bucket_rank` are timed there as in phase 5;
-7. the profiler, after every CUDA-event timing (a profiler session can
+7. the auction views: configs 1 (SUM/COUNT of bids by auction), 2
+   (auctions ⋈ bids) and 4 (max bid per auction), one after another, each
+   through `FusedDataflow` at caps printed beside it: 64 hydration ticks
+   of 65,536 bids and 4,096 auctions (2^22 bids over 2^18 auctions), one
+   warm-up tick, five timed ticks; the launch counters are zeroed just
+   before the timed ticks and read just after, `probe`, `probe2`,
+   `multi_take` and `run_sum` must each have launched, each is replayed
+   at its largest call of the timed ticks against its plain version
+   (exact) and timed there, and no timed or profiled tick may take an
+   overflow retry;
+8. the profiler, after every CUDA-event timing (a profiler session can
    slow the process's later launches): each kernel's and library call's
    device time at its largest call (`kernel_device_ms`,
    `library_device_ms`) and the device events of one wrapper call
@@ -46,10 +58,15 @@ a machine with one card), whose exchange runs the `route_dest` and
    of each path, for the device time by kernel and the idle share. Then the
    union of the workers' views and the single path's view must each equal
    the brute-force `q3_oracle` over the generator's host mirrors, with no
-   error rows and no overflow.
+   error rows and no overflow. Then two profiled ticks of each auction
+   config (device time by kernel, idle share, each plan node's host time
+   and device span), and each auction view against a NumPy oracle over
+   every generated bid and auction.
 
-It prints the kernel table as one JSON line, then the device line as the
-last line. It exits non-zero, printing no result, without a CUDA device.
+It prints one JSON line a path (`q3`, `q3_sharded`, one `auction` line a
+config), the card's name and power limit, the kernel table as one JSON
+line, then the device line as the last line. It exits non-zero, printing
+no result, without a CUDA device.
 """
 
 from __future__ import annotations
@@ -832,8 +849,13 @@ def device_breakdown(prof, wall_s: float) -> dict:
     by_name: dict = {}
     n_events = 0
     memsets = [0, 0.0]
+    spans: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name.startswith("mzt"):
+            # a plan node's range as the device saw it (first to last kernel
+            # of its launches), not a device event of its own
+            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        elif e.device_type == DeviceType.CUDA:
             n_events += 1
             ms = e.time_range.elapsed_us() / 1e3
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
@@ -855,6 +877,7 @@ def device_breakdown(prof, wall_s: float) -> dict:
         "device_events": n_events,
         "idle_share": 1.0 - busy / (wall_s * 1e3), "port_kernels_ms": ours, "memsets": memsets,
         "top": [[name[:90], ms] for name, ms in top],
+        **({"node_device_span_ms": spans} if spans else {}),
     }
 
 
@@ -1012,6 +1035,225 @@ def device_times(rows: list, samples: dict) -> None:
               f"{row['library_device_ms']} ms")
 
 
+# -- phase 7: the auction views through the fused renderer ---------------------
+
+AUCTION_CONFIGS = ("bids_sum_count", "auctions_join_bids", "max_bid_per_auction")
+AUCTION_SEED = 0
+AUCTION_BIDS = 1 << 16  # bids a tick
+AUCTION_NEW = 4096  # auctions a tick
+AUCTION_HYDRATE = 64  # hydration ticks: 2^22 bids over 2^18 auctions
+AUCTION_TICKS = 5  # timed churn ticks, after one warm-up tick
+
+
+def auction_caps():
+    """FusedCaps for the auction views at the card's size. Levels are
+    level_caps(full, delta, 3, ratio=8): level 0 takes 8 ticks of deltas and
+    level 1 64, so append-only input runs without a retry when an
+    arrangement's top level holds 512 deltas. A reduce's table holds a row a
+    group (2^18 auctions; 2^24 leaves each level room); a top-k gather
+    holds every row of the touched groups in one level (about 58 k auctions
+    x 16 bids, 2^20 rows); a join tick's output is one row a bid."""
+    from materialize_tpu_torch.dataflow.fused import FusedCaps
+
+    delta = AUCTION_BIDS
+    return FusedCaps(delta=delta, arrangement=512 * delta, groups=1 << 24,
+                     join_out=2 * delta, gather=1 << 21)
+
+
+def auction_oracle_check(config: str, df, gen) -> dict:
+    """The view against a NumPy oracle over every generated bid and auction:
+    config 1 (auction_id, sum(amount), count) per auction; config 2 every
+    auction ++ bid pair on a.id = b.auction_id; config 4 per auction the bid
+    with the largest amount, ties to the smallest bid id. Configs 1 and 4
+    compare `peek`'s rows; config 2 (one row a bid) compares the index's
+    consolidated host columns in NumPy, ordered by bid id. No error rows.
+    The index is first compacted to the last tick, so that a read
+    consolidates the spine's +/- history instead of expanding it."""
+    idx = next(iter(df.desc.index_exports))
+    df.compact(df.frontier - 1)
+    if df.index_errs[idx].batches:
+        raise AssertionError(f"{config}: error rows in the index")
+    bids = [np.concatenate(c) for c in zip(*gen.host["bids"])]
+    auction_id, amount = bids[2], bids[3]
+    if config == "bids_sum_count":
+        n = np.bincount(auction_id)
+        s = np.bincount(auction_id, weights=amount.astype(np.float64)).astype(np.int64)
+        live = np.flatnonzero(n)
+        want = list(zip(live.tolist(), s[live].tolist(), n[live].tolist()))
+        got = df.peek(idx)
+        how = "peek"
+    elif config == "max_bid_per_auction":
+        order = np.lexsort((bids[0], -amount, auction_id))
+        first = order[np.r_[True, auction_id[order][1:] != auction_id[order][:-1]]]
+        want = sorted(zip(*(c[first].tolist() for c in bids)))
+        got = df.peek(idx)
+        how = "peek"
+    else:
+        auctions = [np.concatenate(c) for c in zip(*gen.host["auctions"])]
+        if not np.array_equal(auctions[0], np.arange(len(auctions[0]))):
+            raise AssertionError("auction ids are not dense")
+        want_cols = [a[auction_id] for a in auctions] + bids
+        cols, ncols = df.index_traces[idx].host_columns()
+        if ncols != len(want_cols) or not (cols["diffs"] == 1).all():
+            raise AssertionError(f"{config}: index rows are not one copy each")
+        got_cols = [cols[f"c{i}"] for i in range(ncols)]
+        # one row a bid: the bid id (column 4) orders both
+        ow, og = np.argsort(want_cols[4], kind="stable"), np.argsort(got_cols[4], kind="stable")
+        same = len(ow) == len(og) and all(
+            np.array_equal(w[ow], g[og]) for w, g in zip(want_cols, got_cols))
+        want, got = (len(ow), same), (len(og), True)
+        how = "numpy columns of the index"
+    if got != want:
+        raise AssertionError(f"{config}: view differs from its oracle")
+    return {"rows": len(got) if how == "peek" else want[0], "compared": how}
+
+
+def fit_index(df) -> int:
+    """Shrink each index spine's batches to their live rows
+    (`Arrangement.rebucket`); returns the host reads that made (one a
+    batch). The fused tick of a top-k emits a batch of 6 x `gather` rows
+    (two windows of three gathered levels), which the spine would keep at
+    that capacity: 12.6 M rows a tick here, past the card's memory within
+    the hydration."""
+    reads = 0
+    for arr in df.index_traces.values():
+        reads += len(arr.batches)
+        arr.rebucket()
+    return reads
+
+
+def run_auction(config: str, device) -> dict:
+    """Config `config` of models/auction.py through FusedDataflow: hydrate
+    (AUCTION_HYDRATE ticks), one warm-up tick, AUCTION_TICKS timed churn
+    ticks with the launch counters zeroed just before and read just after,
+    each path kernel replayed at its largest call of the timed ticks against
+    its plain version (exact) and timed there. Config 4's index spine is
+    rebucketed after every tick (`fit_index`), its reads counted as host
+    syncs and its time inside the ticks' wall. Returns the numbers and the
+    closures of the profiled ticks and of the oracle check."""
+    from materialize_tpu_torch.dataflow.fused import FusedDataflow
+    from materialize_tpu_torch.models import auction
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.ops.reduce import HOST_SYNCS
+    from materialize_tpu_torch.storage import AuctionGenerator
+
+    desc = getattr(auction, config)()
+    sources = tuple(desc.source_imports)
+    caps = auction_caps()
+    gen = AuctionGenerator(AUCTION_SEED, AUCTION_NEW, device=device, keep_host=True)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    df = FusedDataflow(desc, caps, device=device)
+    fit = config == "max_bid_per_auction"
+    index_reads = [0]
+
+    def inputs(tick):
+        batches = gen.next_tick(tick, AUCTION_BIDS)
+        return {s: batches[s] for s in sources}
+
+    def step(tick, batches):
+        df.step(tick, batches)
+        if fit:
+            index_reads[0] += fit_index(df)
+
+    phase(f"auction {config}: caps {caps}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tick in range(1, AUCTION_HYDRATE + 1):
+        step(tick, inputs(tick))
+    torch.cuda.synchronize()
+    hydrate_s = time.perf_counter() - t0
+    hydrate_retries = df.retries
+    warm = AUCTION_HYDRATE + 1
+    step(warm, inputs(warm))
+    later = [(tk, inputs(tk)) for tk in range(warm + 1, warm + 1 + AUCTION_TICKS + PROFILED_TICKS)]
+    rows = AUCTION_BIDS + (AUCTION_NEW if "auctions" in sources else 0)
+    torch.cuda.synchronize()
+    phase(f"auction {config}: hydrated {AUCTION_HYDRATE} ticks in {hydrate_s:.2f}s "
+          f"({hydrate_retries} retries), warm-up tick {warm} done")
+
+    retries0 = df.retries
+    registry.reset_launches()
+    registry.SAMPLES = {}
+    syncs0 = df.host_syncs + HOST_SYNCS["lookup_widen"] + index_reads[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for tk, b in later[:AUCTION_TICKS]:
+        step(tk, b)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(registry.LAUNCHES)
+    samples, registry.SAMPLES = registry.SAMPLES, None
+    syncs = df.host_syncs + HOST_SYNCS["lookup_widen"] + index_reads[0] - syncs0
+    if df.retries != retries0:
+        raise AssertionError(f"auction {config}: an overflow retry in the timed ticks")
+    missing = [k for k in SINGLE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"auction {config}: kernels not launched: {missing}")
+    timed = [tk for tk, _b in later[:AUCTION_TICKS]]
+    kernels = {}
+    for k in SINGLE_PATH:
+        shape, (kern, _plain, _library, moved), err = check_largest(k, samples)
+        kernels[k] = {"launches": launches[k], "shape": list(shape), "max_abs_err": err,
+                      "ms": time_ms(kern), "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+    del samples
+    info = df.arrangement_info()
+    out = {
+        "config": config, "caps": dataclasses.asdict(caps), "sources": list(sources),
+        "hydrate_ticks": AUCTION_HYDRATE, "hydrate_s": hydrate_s,
+        "hydrate_retries": hydrate_retries, "timed_ticks": timed,
+        "updates": rows * AUCTION_TICKS, "seconds": elapsed,
+        "updates_per_s": rows * AUCTION_TICKS / elapsed,
+        "host_syncs_per_tick": syncs / AUCTION_TICKS, "retries": df.retries,
+        "index_rebucketed": fit,
+        "deepest_merge_in_window": any(tk % 64 == 0 for tk in timed),
+        "level_merge_in_window": [tk for tk in timed if tk % caps.ratio == 0],
+        "state_bytes": sum(r[-1] for r in info if r[0] == "fused"),
+        "index_bytes": sum(r[-1] for r in info if r[0] != "fused"),
+        "state_rows": sum(r[5] for r in info if r[0] == "fused"),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30,
+        "kernels": kernels,
+    }
+    phase(f"auction {config}: {out['updates']} updates in {elapsed:.4f}s over "
+          f"{AUCTION_TICKS} ticks = {out['updates_per_s']:.1f} updates/s; "
+          f"{out['host_syncs_per_tick']} host syncs per tick; retries {df.retries}; "
+          f"state {out['state_bytes']} B, index {out['index_bytes']} B; "
+          f"peak {out['peak_mem_gib']:.2f} GiB; launches {launches}")
+    for k, row in kernels.items():
+        phase(f"auction {config}: {k} equals its plain version at its largest call "
+              f"{row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+
+    def profiled_ticks() -> dict:
+        """The last ticks under the profiler, the plan nodes named."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from materialize_tpu_torch.obs import profiler as mzt_profiler
+
+        mzt_profiler.configure(True)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t_prof = time.perf_counter()
+                for tk, b in later[AUCTION_TICKS:]:
+                    step(tk, b)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t_prof
+        finally:
+            mzt_profiler.configure(False)
+        if df.retries != retries0:
+            raise AssertionError(f"auction {config}: an overflow retry in the profiled ticks")
+        from torch.autograd import DeviceType
+
+        nodes: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name.startswith("mzt"):
+                nodes[e.name] = nodes.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        return {"profile": {**device_breakdown(prof, prof_wall), "host_ms_by_node": nodes}}
+
+    out["profiled_ticks"] = profiled_ticks
+    out["check"] = lambda: auction_oracle_check(config, df, gen)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1075,6 +1317,8 @@ def main() -> int:
         phase(f"{row['name']} equals its plain version at the sharded phase's {shape}")
     sh_rows = kernel_table(("route_dest", "bucket_rank"), sh_samples, sh_launches)
 
+    auctions = {config: run_auction(config, device) for config in AUCTION_CONFIGS}
+
     # every CUDA-event timing is done: now the profiler (the short sessions
     # first: after the ticks' long ones, short ones lost events), and the views
     device_times(rows, samples)
@@ -1106,9 +1350,16 @@ def main() -> int:
         raise AssertionError(f"view differs from q3_oracle: {len(view)} vs {len(want)} groups")
     phase(f"view equals q3_oracle: {len(view)} groups")
     del gen, view, want, done
+    for config, au in auctions.items():
+        au.update(au.pop("profiled_ticks")())
+        au["view"] = au.pop("check")()
+        phase(f"auction {config}: view equals its oracle ({au['view']}); profile "
+              f"{json.dumps(au['profile'])}")
     rows += sh_rows
     for row in rows:
         row["launches_sharded"] = sh_launches[row["name"]]
+        row["auction"] = {config: au["kernels"].get(row["name"], {"launches": 0})
+                          for config, au in auctions.items()}
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],
@@ -1128,6 +1379,8 @@ def main() -> int:
         "overflow_retries": overflow_retries(), "launches": sh_launches,
         "profile": sh["profile"],
     }}))
+    for au in auctions.values():
+        print(json.dumps({"auction": au}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

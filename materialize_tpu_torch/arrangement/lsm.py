@@ -4,7 +4,9 @@ Counterpart of materialize_tpu/arrangement/lsm.py. K levels of consolidated
 sorted batches (or accumulator tables), small to large; level i merges into
 level i+1 whenever ``tick % ratio^(i+1) == 0``. The schedule depends only
 on the tick, which is a Python int here, so the host decides each merge
-with no device read. Overflow flags stay bool tensors.
+with no device read. Overflow flags stay bool tensors. With a compaction
+frontier `since`, a merge first advances times to it, so +/- pairs at
+bygone times cancel.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ class LsmBatches:
             tuple(UpdateBatch.empty(c, key_dtypes, val_dtypes, device) for c in caps)
         )
 
+    def count(self) -> torch.Tensor:
+        return sum(b.count() for b in self.levels)
+
 
 @dataclass
 class LsmAccums:
@@ -57,8 +62,10 @@ def _empty_accum_like(s: AccumState) -> AccumState:
                             s.hashes.device)
 
 
-def lsm_insert(lsm: LsmBatches, delta: UpdateBatch, tick: int, ratio: int = 4):
-    """Insert a keyed, consolidated delta; run the tick's scheduled merges.
+def lsm_insert(lsm: LsmBatches, delta: UpdateBatch, tick: int, ratio: int = 4,
+               since: int | None = None):
+    """Insert a keyed, consolidated delta; run the tick's scheduled merges,
+    which first advance times to `since` when one is given.
 
     Returns (lsm', overflow)."""
     levels = list(lsm.levels)
@@ -67,7 +74,7 @@ def lsm_insert(lsm: LsmBatches, delta: UpdateBatch, tick: int, ratio: int = 4):
     for i in range(len(levels) - 2, -1, -1):
         if int(tick) % ratio ** (i + 1) == 0:
             lo, hi = levels[i], levels[i + 1]
-            merged = merge_consolidate(hi, lo)
+            merged = merge_consolidate(hi, lo, since=since)
             overflow = overflow | (merged.count() > hi.cap)
             levels[i], levels[i + 1] = _empty_batch_like(lo), merged.with_capacity(hi.cap)
     # delta lands in level 0 (delta is arranged = canonically sorted)
@@ -77,15 +84,16 @@ def lsm_insert(lsm: LsmBatches, delta: UpdateBatch, tick: int, ratio: int = 4):
     return LsmBatches(tuple(levels)), overflow
 
 
-def lsm_join(probe: UpdateBatch, lsm: LsmBatches, out_caps: tuple):
+def lsm_join(probe: UpdateBatch, lsm: LsmBatches, out_caps: tuple, swap: bool = False):
     """Join a probe batch against every level. Returns (outs list, overflow).
 
+    Output rows are probe ++ level vals, or level ++ probe with `swap`.
     Each level's match ranges are searched once, for its overflow total and
     its materialization (the reference's jit merges the two searches)."""
     outs = []
     overflow = _false(probe.device)
     for level, cap in zip(lsm.levels, out_caps):
-        total, out = join_with_total(probe, level, cap)
+        total, out = join_with_total(probe, level, cap, swap)
         outs.append(out)
         overflow = overflow | (total > cap)
     return outs, overflow

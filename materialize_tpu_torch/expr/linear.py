@@ -4,7 +4,7 @@ Counterpart of materialize_tpu/expr/linear.py (`MapFilterProject.apply`).
 Appended map expressions, a conjunction of predicates, then a projection,
 evaluated columnwise over a batch. Filtered rows keep their slot with
 diff 0; erroring rows go to a parallel error batch instead of trapping.
-The MFP builder and composition belong to the dataflow slice.
+The MFP builder and composition come with the SQL layers.
 """
 
 from __future__ import annotations
@@ -28,6 +28,26 @@ class MapFilterProject:
     map_exprs: tuple = ()  # appended columns, may reference earlier maps
     predicates: tuple = ()  # conjunction; references input+map columns
     projection: tuple | None = None  # output col indices; None = identity
+
+    @staticmethod
+    def identity(arity: int) -> "MapFilterProject":
+        return MapFilterProject(arity)
+
+    @property
+    def output_arity(self) -> int:
+        if self.projection is not None:
+            return len(self.projection)
+        return self.input_arity + len(self.map_exprs)
+
+    def is_identity(self) -> bool:
+        return (
+            not self.map_exprs
+            and not self.predicates
+            and (
+                self.projection is None
+                or tuple(self.projection) == tuple(range(self.input_arity))
+            )
+        )
 
     def apply(self, batch: UpdateBatch) -> tuple[UpdateBatch, UpdateBatch]:
         """Evaluate on a batch; returns (oks, errs).

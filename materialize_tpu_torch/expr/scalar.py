@@ -1,8 +1,9 @@
 """Scalar expressions evaluated columnwise, with SQL NULLs.
 
-Counterpart of materialize_tpu/expr/scalar.py, for the functions Q3 uses:
-`eq`, `lt`, `gt`, `sub` and `mul`. The rest of the function library comes
-with the slice that ports the dataflow renderer.
+Counterpart of materialize_tpu/expr/scalar.py, for the functions that Q3
+and the auction views use: `eq`, `lt`, `gt`, `sub` and `mul`. The rest of
+the function library, and the string functions (`DictFunc`), come with
+later slices.
 
 NULL is in-band: a per-dtype sentinel stored in the column itself
 (INT64_MIN, INT32_MIN, -128, NaN). Evaluation derives a null mask at each
@@ -148,3 +149,12 @@ def eval_expr3(expr, cols: list, n: int):
             return _as_bool_i8(lv > rv), null, err
         raise NotImplementedError(f"binary func {f}")
     raise NotImplementedError(f"expression {expr!r}")
+
+
+def expr_has_dictfunc(expr) -> bool:
+    """True if the expression tree contains a string-dictionary function
+    (host-path only). The port has no such function yet (they come with
+    `expr/strings.py`), so this walks the port's node types and finds none."""
+    if isinstance(expr, CallBinary):
+        return expr_has_dictfunc(expr.left) or expr_has_dictfunc(expr.right)
+    return False

@@ -1,12 +1,15 @@
 """Carrying state across between the JAX package and the port, as numpy.
 
 The JAX package holds its state in pytrees (`UpdateBatch`, `AccumState`,
-`LsmBatches`, `LsmAccums`, `Q3State`). `to_numpy` lists a port object's
-arrays in the JAX pytree leaf order, with hashes and times narrowed back to
-u32 as the JAX package stores them; `from_numpy` rebuilds a port object of
-the same structure as `template` from such a list (u32 columns widen to
-int64, every other column keeps its dtype). Neither imports JAX: the
-caller flattens the JAX side itself (`jax.tree_util.tree_leaves`).
+`LsmBatches`, `LsmAccums`, `Q3State`, and `FusedDataflow`'s state, a dict
+{path: LsmBatches | LsmAccums} whose leaves come in the order of its keys
+sorted as strings, so "x/10:..." before "x/2:..."). `to_numpy` lists a
+port object's arrays in the JAX pytree leaf order, with hashes and times
+narrowed back to u32 as the JAX package stores them; `from_numpy` rebuilds
+a port object of the same structure as `template` from such a list (u32
+columns widen to int64, every other column keeps its dtype). Neither
+imports JAX: the caller flattens the JAX side itself
+(`jax.tree_util.tree_leaves`).
 
 A mesh-sharded JAX state is one global pytree whose every leaf is split on
 axis 0 into equal parts, one per device; `split_leaves` cuts such leaves
@@ -44,6 +47,9 @@ def _walk(obj) -> Iterator[tuple[torch.Tensor, bool]]:
     elif isinstance(obj, Q3State):
         for part in (obj.cust_by_ck, obj.ord_by_ck, obj.ord_by_ok, obj.li_by_ok, obj.accum):
             yield from _walk(part)
+    elif isinstance(obj, dict):
+        for key in sorted(obj):
+            yield from _walk(obj[key])
     else:
         raise TypeError(f"not a port state object: {type(obj).__name__}")
 
@@ -78,6 +84,8 @@ def _rebuild(template, it: Iterator[torch.Tensor]):
             for p in (template.cust_by_ck, template.ord_by_ck, template.ord_by_ok,
                       template.li_by_ok, template.accum)
         ))
+    if isinstance(template, dict):
+        return {key: _rebuild(template[key], it) for key in sorted(template)}
     raise TypeError(f"not a port state object: {type(template).__name__}")
 
 

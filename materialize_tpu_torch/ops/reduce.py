@@ -1,11 +1,14 @@
-"""Accumulable reductions (integer SUM and COUNT) as segmented kernels.
+"""Accumulable reductions (SUM and COUNT) as segmented kernels.
 
 Counterpart of materialize_tpu/ops/reduce.py. Per-key state is a sorted
 table of accumulator vectors (`AccumState`); a tick's delta batch is
 segment-summed into per-key contributions (`consolidate_accums`), looked up
 against the table (`lookup_accums`) and emitted self-correctingly as
 (-old aggregate, +new aggregate) per affected key (`_emit_output`).
-Fixed-point float sums belong to the slice that brings float aggregates.
+Float sums accumulate in i64 fixed point (`AggregateExpr.fixed_scale`), so
+every accumulator column, and `run_sum`, stays integer; the emitted column
+descales to float32. The host-driven `accumulable_step` comes with the
+host runtime.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..expr.scalar import EvalErr, Literal, eval_expr3
@@ -93,11 +97,29 @@ class AccumState:
 
 @dataclass(frozen=True)
 class AggregateExpr:
-    """One integer aggregate: func in {sum, count}, over `expr`."""
+    """One aggregate: func in {sum, count}, over `expr`.
+
+    `fixed_scale` > 0 marks a float sum accumulated in fixed point: each
+    input is scaled by 2**fixed_scale, rounded (half to even) to the i64
+    accumulator, and the emitted column descales back to float32. Insert
+    and retract of one value quantize identically, so retractions cancel
+    exactly. |sum * 2^fixed_scale| must fit i64; `accum_overflow_errs`
+    flags totals past 2^60.
+    """
 
     func: str
     expr: object
     accum_dtype: str = "int64"
+    fixed_scale: int = 0
+
+
+FLOAT_FIXED_SCALE = 24  # the reference's float accumulation quantum
+
+
+def agg_out_dtype(a: AggregateExpr) -> np.dtype:
+    """Output column dtype of one aggregate (the accumulator's, except
+    fixed-point float sums, which descale to float32)."""
+    return np.dtype(np.float32) if a.fixed_scale else np.dtype(a.accum_dtype)
 
 
 def _accum_pack(s: AccumState) -> tuple[torch.Tensor, torch.Tensor]:
@@ -204,7 +226,12 @@ def _contributions(delta: UpdateBatch, key_cols: tuple[int, ...], aggs):
         elif agg.func == "sum":
             v, nv, ev = eval_expr3(agg.expr, cols, n)
             err = torch.maximum(err, ev)
-            contrib = v.to(dt) * delta.diffs.to(dt)
+            if agg.fixed_scale:
+                # float sum: quantize once per value; exact under retraction
+                q = torch.round(v.to(torch.float32) * float(1 << agg.fixed_scale)).to(dt)
+                contrib = q * delta.diffs.to(dt)
+            else:
+                contrib = v.to(dt) * delta.diffs.to(dt)
             # NULL inputs contribute nothing
             accums.append(torch.where(nv, torch.zeros_like(contrib), contrib))
         else:
@@ -281,14 +308,43 @@ def collision_errs(probe: AccumState, missed: torch.Tensor, time: int) -> Update
     return _error_rows(missed, int(EvalErr.HASH_COLLISION_EXHAUSTED), time)
 
 
-def _emit_output(delta_keys: AccumState, old_accums, old_nrows, time: int) -> UpdateBatch:
+# fixed-point accumulators flag before i64 wraps: 2^60 leaves 8x headroom
+# over any single further contribution
+_ACCUM_OVERFLOW_BOUND = 1 << 60
+
+
+def accum_overflow_errs(contrib: AccumState, old_accums, aggs: tuple, time: int):
+    """Error rows for fixed-point accumulators near the i64 bound: the
+    tick's contributions and the new totals (old + contribution) of affected
+    keys. None, with no device work, when no aggregate is fixed-point."""
+    scales = tuple(getattr(a, "fixed_scale", 0) for a in aggs)
+    if not any(scales):
+        return None
+    over = torch.zeros_like(contrib.live)
+    for c, o, s in zip(contrib.accums, old_accums, scales):
+        if s:
+            over = over | (c.abs() > _ACCUM_OVERFLOW_BOUND) | (
+                (o + c).abs() > _ACCUM_OVERFLOW_BOUND)
+    return _error_rows(over & contrib.live, int(EvalErr.NUMERIC_OVERFLOW), time)
+
+
+def _emit_output(delta_keys: AccumState, old_accums, old_nrows, time: int,
+                 aggs: tuple = ()) -> UpdateBatch:
     """Self-correcting output: -old aggregate row, +new aggregate row per key.
 
     Output rows are (key cols ++ one col per aggregate), diff ±1 at `time`,
-    interleaved old/new per key."""
+    interleaved old/new per key. With `aggs`, fixed-point float
+    accumulators descale to float32 output columns."""
     live = delta_keys.live
     new_accums = tuple(o + d for o, d in zip(old_accums, delta_keys.accums))
     new_nrows = old_nrows + delta_keys.nrows
+    scales = tuple(a.fixed_scale for a in aggs) if aggs else (0,) * len(new_accums)
+
+    def descale(a, s):
+        return a.to(torch.float32) / float(1 << s) if s else a
+
+    old_accums = tuple(descale(a, s) for a, s in zip(old_accums, scales))
+    new_accums = tuple(descale(a, s) for a, s in zip(new_accums, scales))
     old_present = live & (old_nrows > 0)
     new_present = live & (new_nrows > 0)
 

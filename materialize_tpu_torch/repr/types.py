@@ -1,0 +1,30 @@
+"""Host-side string interning.
+
+Counterpart of materialize_tpu/repr/types.py::StringDictionary, as far as
+the load generators need it (encoding). The device only ever sees dense
+int64 codes; equality (GROUP BY, join keys) is exact. Code order is
+insertion order, not collation order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class StringDictionary:
+    """Interning of strings to dense int64 codes."""
+
+    def __init__(self) -> None:
+        self._code: dict[str, int] = {}
+        self._strs: list[str] = []
+
+    def encode(self, s: str) -> int:
+        code = self._code.get(s)
+        if code is None:
+            code = len(self._strs)
+            self._code[s] = code
+            self._strs.append(s)
+        return code
+
+    def encode_many(self, xs) -> np.ndarray:
+        return np.array([self.encode(x) for x in xs], dtype=np.int64)

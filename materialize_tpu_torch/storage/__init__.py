@@ -1,1 +1,1 @@
-from .generator import TpchGenerator, date_num  # noqa: F401
+from .generator import AuctionGenerator, TpchGenerator, date_num  # noqa: F401

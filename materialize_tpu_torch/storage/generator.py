@@ -1,9 +1,10 @@
-"""Deterministic TPC-H generator with RF1/RF2 refresh streams.
+"""Deterministic load generators: the auction stream and TPC-H with RF1/RF2.
 
-Counterpart of materialize_tpu/storage/generator.py (`TpchGenerator` and
-`date_num`). The numpy draws are the reference's, in the same order, so the
-same seed yields the same rows; batches land on the requested device as
-port `UpdateBatch`es. Money is fixed-point cents; dates are day numbers.
+Counterpart of materialize_tpu/storage/generator.py (`AuctionGenerator`,
+`TpchGenerator` and `date_num`). The numpy draws are the reference's, in
+the same order, so the same seed yields the same rows; batches land on the
+requested device as port `UpdateBatch`es. Money is fixed-point cents; dates
+are day numbers.
 """
 
 from __future__ import annotations
@@ -13,6 +14,85 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..repr.batch import UpdateBatch
+from ..repr.types import StringDictionary
+
+_ITEMS = [
+    "Signed Memorabilia",
+    "City Bar Crawl",
+    "Best Pizza in Town",
+    "Gift Basket",
+    "Custom Art",
+]
+
+
+class AuctionGenerator:
+    """Append-only auction and bid stream, deterministic per seed.
+
+    The shape of the reference auction load generator: static
+    organizations, users and accounts; a stream of auctions and bids.
+    auctions(id, seller, item code, end_time), bids(id, buyer, auction_id,
+    amount, bid_time), all int64. With `keep_host`, every tick's host
+    columns are also kept in `host["auctions"]` and `host["bids"]` (lists
+    of column tuples), for oracles.
+    """
+
+    # per-bid footprint for ingest budgeting (5 i64 cols + time/diff)
+    ROW_BYTES = 56
+
+    def __init__(self, seed: int = 0, n_auctions_per_tick: int = 4,
+                 dict_: StringDictionary | None = None, device="cuda",
+                 keep_host: bool = False):
+        self.rng = np.random.default_rng(seed)
+        self.dict = dict_ or StringDictionary()
+        self.item_codes = self.dict.encode_many(_ITEMS)
+        self.next_auction_id = 0
+        self.next_bid_id = 0
+        self.n_auctions_per_tick = n_auctions_per_tick
+        self.open_auctions: np.ndarray = np.array([], dtype=np.int64)
+        self.device = device
+        self.host: dict | None = {"auctions": [], "bids": []} if keep_host else None
+
+    def static_tables(self) -> dict[str, tuple]:
+        orgs = np.arange(20, dtype=np.int64)
+        org_names = self.dict.encode_many([f"org #{i}" for i in orgs])
+        users = np.arange(1000, dtype=np.int64)
+        user_org = users % 20
+        user_names = self.dict.encode_many([f"user #{i}" for i in users])
+        balances = np.full(1000, 10_000, dtype=np.int64)
+        return {
+            "organizations": (orgs, org_names),
+            "users": (users, user_org, user_names),
+            "accounts": (users, user_org, balances),
+        }
+
+    def next_tick(self, tick: int, n_bids: int) -> dict[str, UpdateBatch]:
+        """New auctions + a batch of bids on open auctions at time `tick`."""
+        na = self.n_auctions_per_tick
+        a_ids = np.arange(self.next_auction_id, self.next_auction_id + na, dtype=np.int64)
+        self.next_auction_id += na
+        sellers = self.rng.integers(0, 1000, na).astype(np.int64)
+        items = self.item_codes[self.rng.integers(0, len(self.item_codes), na)]
+        end_times = np.full(na, tick + 100, dtype=np.int64)
+        self.open_auctions = np.concatenate([self.open_auctions, a_ids])
+
+        b_ids = np.arange(self.next_bid_id, self.next_bid_id + n_bids, dtype=np.int64)
+        self.next_bid_id += n_bids
+        buyers = self.rng.integers(0, 1000, n_bids).astype(np.int64)
+        target = self.open_auctions[self.rng.integers(0, len(self.open_auctions), n_bids)]
+        amounts = self.rng.integers(1, 10_000, n_bids).astype(np.int64)
+        bid_times = np.full(n_bids, tick, dtype=np.int64)
+
+        auctions = (a_ids, sellers, items, end_times)
+        bids = (b_ids, buyers, target, amounts, bid_times)
+        if self.host is not None:
+            self.host["auctions"].append(auctions)
+            self.host["bids"].append(bids)
+        return {
+            "auctions": UpdateBatch.build((), auctions, [tick] * na, [1] * na,
+                                          device=self.device),
+            "bids": UpdateBatch.build((), bids, [tick] * n_bids, [1] * n_bids,
+                                      device=self.device),
+        }
 
 
 def date_num(y: int, m: int, d: int) -> int:

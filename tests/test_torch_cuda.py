@@ -274,3 +274,46 @@ def test_cuda_launch_path_still_refuses_bad_input(cuda_device):
     with pytest.raises(RuntimeError):  # the C side refuses scratch smaller than that
         registry.run("mz_bucket_rank", h.get_device(), h.data_ptr(), n, h.data_ptr(), h.data_ptr(),
                      route.bucket_rank_scratch_words(n) - 1)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_max_bid_per_auction_equals_cpu(cuda_device):
+    """Config 4 (max bid per auction) through FusedDataflow on the card and
+    on the CPU, with retractions from tick 3 on and a merge ratio of 2:
+    every tick's outputs and state leaves must be equal, and the card's
+    ticks must have launched probe, probe2, multi_take and run_sum."""
+    from materialize_tpu_torch import interop
+    from materialize_tpu_torch.dataflow.fused import FusedCaps, FusedDataflow
+    from materialize_tpu_torch.models.auction import max_bid_per_auction
+    from materialize_tpu_torch.repr.batch import UpdateBatch
+    from materialize_tpu_torch.storage import AuctionGenerator
+
+    caps = FusedCaps(delta=512, arrangement=1 << 13, groups=1 << 12, join_out=1 << 11,
+                     gather=1 << 11, ratio=2)
+    gen = AuctionGenerator(7, 16, device="cpu", keep_host=True)
+    dfs = {d: FusedDataflow(max_bid_per_auction(), caps, device=d) for d in ("cpu", cuda_device)}
+    registry.reset_launches()
+    for tick in range(1, 9):
+        gen.next_tick(tick, 300)
+        bids, diffs = gen.host["bids"][-1], np.ones(300, dtype=np.int64)
+        if tick >= 3:  # retract 60 bids of two ticks before
+            old = tuple(c[:60] for c in gen.host["bids"][tick - 3])
+            bids = tuple(np.concatenate([c, o]) for c, o in zip(bids, old))
+            diffs = np.concatenate([diffs, -np.ones(60, dtype=np.int64)])
+        times = np.full(len(diffs), tick)
+        res = {d: df.step(tick, {"bids": UpdateBatch.build((), bids, times, diffs, device=d)})
+               for d, df in dfs.items()}
+        want, got = res["cpu"]["mv_topk"], res[cuda_device]["mv_topk"]
+        assert (want is None) == (got is None), tick
+        for w, g in zip(want or (), got or ()):
+            assert (w is None) == (g is None), tick
+            if w is not None:
+                for a, b in zip(interop.to_numpy(w), interop.to_numpy(g)):
+                    assert a.tobytes() == b.tobytes(), tick
+        for a, b in zip(interop.to_numpy(dfs["cpu"].state),
+                        interop.to_numpy(dfs[cuda_device].state)):
+            assert a.tobytes() == b.tobytes(), tick
+        assert dfs["cpu"].retries == dfs[cuda_device].retries
+    assert dfs["cpu"].peek("idx_topk") == dfs[cuda_device].peek("idx_topk")
+    for k in ("probe", "probe2", "multi_take", "run_sum"):
+        assert registry.LAUNCHES[k] > 0, k
