@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Three paths run: the single-GPU Q3 maintenance tick at TPC-H scale factor 1
+These paths run: the single-GPU Q3 maintenance tick at TPC-H scale factor 1
 (materialize_tpu_torch/models/fused_q3.py); the same tick sharded over an
 in-process mesh of 4 workers on the card's devices (all 4 on `cuda:0` on a
 machine with one card), whose exchange runs the `route_dest` and
-`bucket_rank` kernels; and the auction views of models/auction.py through
-the fused renderer (dataflow/fused.py). Phases, each of which fails the run
+`bucket_rank` kernels; the auction views of models/auction.py through the
+fused renderer (dataflow/fused.py); and, through `render_dataflow`'s
+default, the host-orchestrated renderer (dataflow/runtime.py `Dataflow`):
+Q3 at SF1, the auction views with a sliding window and a window function,
+and every node kind of that renderer. Phases, each of which fails the run
 on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -49,7 +52,24 @@ on any error:
    `multi_take` and `run_sum` must each have launched, each is replayed
    at its largest call of the timed ticks against its plain version
    (exact) and timed there, and no timed or profiled tick may take an
-   overflow retry;
+   overflow retry; config 4's index spine is rebucketed after every tick
+   (`fit_index`), its share of the timed wall printed apart;
+9. Q3 at SF1 through `render_dataflow(tpch.q3())`, a `runtime.Dataflow`,
+   on phase 4's generator, scale, seed and frac: hydration in one tick,
+   the warm-up tick with the customer retraction, five timed ticks with
+   the launch counters zeroed just before and read just after; the four
+   path kernels must launch, and each is replayed at its largest call
+   there against its plain version (exact) and timed;
+10. the auction views through `render_dataflow`, one description at
+   phase 7's size: configs 1, 2 and 4, bids live for 16 ticks
+   (`TemporalFilter`) summed and counted by auction, and row_number() by
+   amount in each auction (`Window`); 64 hydration ticks, a warm-up and
+   five timed ticks, compacted after every tick and every index and error
+   spine rebucketed (`fit_index`, timed apart: updates/s with and without
+   it); the launch checks and replays of phase 9;
+11. every node kind of the host renderer (models/operators.py, Q3 at sf
+   0.001, `generate_series` through `FusedDataflow`) on the card against
+   the port's own CPU run, byte for byte after every tick;
 8. the profiler, after every CUDA-event timing (a profiler session can
    slow the process's later launches): each kernel's and library call's
    device time at its largest call (`kernel_device_ms`,
@@ -61,10 +81,15 @@ on any error:
    error rows and no overflow. Then two profiled ticks of each auction
    config (device time by kernel, idle share, each plan node's host time
    and device span), and each auction view against a NumPy oracle over
-   every generated bid and auction.
+   every generated bid and auction; then two profiled ticks of phases 9
+   and 10 each, phase 9's view against `q3_oracle` and phase 10's views
+   against NumPy oracles over the generator's host rows.
+
+Phase 8 runs last, after phases 9 to 11, so that every CUDA-event timing
+precedes the first profiler session.
 
 It prints one JSON line a path (`q3`, `q3_sharded`, one `auction` line a
-config), the card's name and power limit, the kernel table as one JSON
+config, `q3_host`, `auction_host`, `node_cases`), the card's name and power limit, the kernel table as one JSON
 line, then the device line as the last line. It exits non-zero, printing
 no result, without a CUDA device.
 """
@@ -1060,6 +1085,10 @@ def auction_caps():
                      join_out=2 * delta, gather=1 << 21)
 
 
+AUCTION_INDEX = {"bids_sum_count": "idx_bids_sum", "auctions_join_bids": "idx_join",
+                 "max_bid_per_auction": "idx_topk"}
+
+
 def auction_oracle_check(config: str, df, gen) -> dict:
     """The view against a NumPy oracle over every generated bid and auction:
     config 1 (auction_id, sum(amount), count) per auction; config 2 every
@@ -1069,9 +1098,9 @@ def auction_oracle_check(config: str, df, gen) -> dict:
     consolidated host columns in NumPy, ordered by bid id. No error rows.
     The index is first compacted to the last tick, so that a read
     consolidates the spine's +/- history instead of expanding it."""
-    idx = next(iter(df.desc.index_exports))
+    idx = AUCTION_INDEX[config]
     df.compact(df.frontier - 1)
-    if df.index_errs[idx].batches:
+    if df.index_errs[idx].count():
         raise AssertionError(f"{config}: error rows in the index")
     bids = [np.concatenate(c) for c in zip(*gen.host["bids"])]
     auction_id, amount = bids[2], bids[3]
@@ -1108,18 +1137,25 @@ def auction_oracle_check(config: str, df, gen) -> dict:
     return {"rows": len(got) if how == "peek" else want[0], "compared": how}
 
 
-def fit_index(df) -> int:
-    """Shrink each index spine's batches to their live rows
+def fit_index(df) -> tuple:
+    """Shrink each index and error spine's batches to their live rows
     (`Arrangement.rebucket`); returns the host reads that made (one a
-    batch). The fused tick of a top-k emits a batch of 6 x `gather` rows
-    (two windows of three gathered levels), which the spine would keep at
-    that capacity: 12.6 M rows a tick here, past the card's memory within
-    the hydration."""
+    batch) and its seconds, the card synchronized before and after.
+    Neither renderer shrinks them: the fused tick of a top-k emits a batch
+    of 6 x `gather` rows, which the spine would keep at that capacity
+    (12.6 M rows a tick here, past the card's memory within the
+    hydration), and the host renderer inserts every tick's error batch,
+    live or not, at its full capacity. This is harness work, not the
+    renderer's: the phases report its share of the timed ticks and keep
+    its reads apart from the renderer's host syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     reads = 0
-    for arr in df.index_traces.values():
+    for arr in (*df.index_traces.values(), *df.index_errs.values()):
         reads += len(arr.batches)
         arr.rebucket()
-    return reads
+    torch.cuda.synchronize()
+    return reads, time.perf_counter() - t0
 
 
 def run_auction(config: str, device) -> dict:
@@ -1128,8 +1164,9 @@ def run_auction(config: str, device) -> dict:
     ticks with the launch counters zeroed just before and read just after,
     each path kernel replayed at its largest call of the timed ticks against
     its plain version (exact) and timed there. Config 4's index spine is
-    rebucketed after every tick (`fit_index`), its reads counted as host
-    syncs and its time inside the ticks' wall. Returns the numbers and the
+    rebucketed after every tick (`fit_index`): its time is inside the
+    ticks' wall and reported as a share of it, its reads apart from the
+    renderer's host syncs. Returns the numbers and the
     closures of the profiled ticks and of the oracle check."""
     from materialize_tpu_torch.dataflow.fused import FusedDataflow
     from materialize_tpu_torch.models import auction
@@ -1145,7 +1182,7 @@ def run_auction(config: str, device) -> dict:
     resident = torch.cuda.memory_allocated()
     df = FusedDataflow(desc, caps, device=device)
     fit = config == "max_bid_per_auction"
-    index_reads = [0]
+    fitted = [0, 0.0]  # fit_index's host reads and seconds
 
     def inputs(tick):
         batches = gen.next_tick(tick, AUCTION_BIDS)
@@ -1154,7 +1191,9 @@ def run_auction(config: str, device) -> dict:
     def step(tick, batches):
         df.step(tick, batches)
         if fit:
-            index_reads[0] += fit_index(df)
+            reads, secs = fit_index(df)
+            fitted[0] += reads
+            fitted[1] += secs
 
     phase(f"auction {config}: caps {caps}")
     torch.cuda.synchronize()
@@ -1175,7 +1214,8 @@ def run_auction(config: str, device) -> dict:
     retries0 = df.retries
     registry.reset_launches()
     registry.SAMPLES = {}
-    syncs0 = df.host_syncs + HOST_SYNCS["lookup_widen"] + index_reads[0]
+    syncs0 = df.host_syncs + HOST_SYNCS["lookup_widen"]
+    fit0 = list(fitted)
     torch.cuda.synchronize()
     start = time.perf_counter()
     for tk, b in later[:AUCTION_TICKS]:
@@ -1184,7 +1224,7 @@ def run_auction(config: str, device) -> dict:
     elapsed = time.perf_counter() - start
     launches = dict(registry.LAUNCHES)
     samples, registry.SAMPLES = registry.SAMPLES, None
-    syncs = df.host_syncs + HOST_SYNCS["lookup_widen"] + index_reads[0] - syncs0
+    syncs = df.host_syncs + HOST_SYNCS["lookup_widen"] - syncs0
     if df.retries != retries0:
         raise AssertionError(f"auction {config}: an overflow retry in the timed ticks")
     missing = [k for k in SINGLE_PATH if launches[k] <= 0]
@@ -1206,6 +1246,8 @@ def run_auction(config: str, device) -> dict:
         "updates_per_s": rows * AUCTION_TICKS / elapsed,
         "host_syncs_per_tick": syncs / AUCTION_TICKS, "retries": df.retries,
         "index_rebucketed": fit,
+        "fit_index_reads_per_tick": (fitted[0] - fit0[0]) / AUCTION_TICKS,
+        "fit_index_share": (fitted[1] - fit0[1]) / elapsed,
         "deepest_merge_in_window": any(tk % 64 == 0 for tk in timed),
         "level_merge_in_window": [tk for tk in timed if tk % caps.ratio == 0],
         "state_bytes": sum(r[-1] for r in info if r[0] == "fused"),
@@ -1216,7 +1258,9 @@ def run_auction(config: str, device) -> dict:
     }
     phase(f"auction {config}: {out['updates']} updates in {elapsed:.4f}s over "
           f"{AUCTION_TICKS} ticks = {out['updates_per_s']:.1f} updates/s; "
-          f"{out['host_syncs_per_tick']} host syncs per tick; retries {df.retries}; "
+          f"{out['host_syncs_per_tick']} host syncs per tick; fit_index "
+          f"{out['fit_index_share']:.4f} of the wall, {out['fit_index_reads_per_tick']} reads "
+          f"per tick; retries {df.retries}; "
           f"state {out['state_bytes']} B, index {out['index_bytes']} B; "
           f"peak {out['peak_mem_gib']:.2f} GiB; launches {launches}")
     for k, row in kernels.items():
@@ -1252,6 +1296,388 @@ def run_auction(config: str, device) -> dict:
     out["profiled_ticks"] = profiled_ticks
     out["check"] = lambda: auction_oracle_check(config, df, gen)
     return out
+
+
+# -- phases 9-11: the host renderer (runtime.Dataflow, render_dataflow's default) --
+
+
+def host_syncs() -> int:
+    """Host reads so far: the reduce lookups' widening decisions and every
+    count the host renderer and its operators read."""
+    from materialize_tpu_torch.ops.reduce import HOST_SYNCS
+
+    return HOST_SYNCS["lookup_widen"] + HOST_SYNCS["host_path"]
+
+
+def host_kernel_rows(samples: dict, launches: dict, what: str) -> dict:
+    """Each path kernel's largest call of a host-renderer phase, replayed
+    against its plain version (exact) and timed by CUDA events."""
+    missing = [k for k in SINGLE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+    rows = {}
+    for k in SINGLE_PATH:
+        shape, (kern, _plain, _library, moved), err = check_largest(k, samples)
+        rows[k] = {"launches": launches[k], "shape": list(shape), "max_abs_err": err,
+                   "ms": time_ms(kern), "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        phase(f"{what}: {k} equals its plain version at its largest call {list(shape)}: "
+              f"{rows[k]['ms']:.4f} ms, bound {rows[k]['bound_ms']:.4f} ms")
+    return rows
+
+
+def profile_host_ticks(run_ticks) -> dict:
+    """Device time by kernel, idle share and each node's host time and
+    device span over `run_ticks()`, under the profiler with the nodes named."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from materialize_tpu_torch.obs import profiler as mzt_profiler
+
+    mzt_profiler.configure(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            run_ticks()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_prof
+    finally:
+        mzt_profiler.configure(False)
+    nodes: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("mzt"):
+            nodes[e.name] = nodes.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {**device_breakdown(prof, prof_wall), "host_ms_by_node": nodes}
+
+
+def run_q3_host(device, sf: float = 1.0, ticks: int = 5, frac: float = 0.02,
+                n_cust_retract: int = 1000, seed: int = 0) -> dict:
+    """Phase 9: tpch.q3() through render_dataflow (runtime.Dataflow) on
+    phase 4's generator, scale, seed and frac, with the plan's int64
+    columns: hydrate in one tick, one warm-up tick with the customer
+    retraction, `ticks` timed churn ticks (launch counters zeroed just
+    before, read just after), then the profiled ticks and the oracle check
+    (closures)."""
+    from materialize_tpu_torch.dataflow import render_dataflow
+    from materialize_tpu_torch.dataflow.runtime import Dataflow
+    from materialize_tpu_torch.models import tpch
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.repr.batch import UpdateBatch
+    from materialize_tpu_torch.storage import TpchGenerator
+
+    phase(f"q3 host: generating TPC-H sf={sf}")
+    gen = TpchGenerator(sf=sf, seed=seed, device=device)
+    df = render_dataflow(tpch.q3(), device=device)
+    if not isinstance(df, Dataflow):
+        raise AssertionError(f"render_dataflow gave {type(df).__name__}, not runtime.Dataflow")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    init = gen.initial_batches(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df.step(1, {k: init[k] for k in ("customer", "orders", "lineitem")})
+    torch.cuda.synchronize()
+    hydrate_s = time.perf_counter() - t0
+    del init
+    phase(f"q3 host: hydrated in {hydrate_s:.2f}s")
+
+    n = n_cust_retract
+    cc = tuple(c[:n] for c in gen._customer)
+    d_cust = UpdateBatch.build((), cc, np.full(n, 2), -np.ones(n, dtype=np.int64), device=device)
+    gen._customer = tuple(c[n:] for c in gen._customer)
+    refreshes, n_updates = [], []
+    for tk in range(2, 3 + ticks + PROFILED_TICKS):
+        r = gen.refresh(tk, frac=frac)
+        refreshes.append((tk, r))
+        n_updates.append(int(r["orders"].count()) + int(r["lineitem"].count()))
+    tk, r = refreshes[0]
+    df.step(tk, {"customer": d_cust, **r})
+    torch.cuda.synchronize()
+    phase("q3 host: warm-up tick (customer retraction) done")
+
+    registry.reset_launches()
+    registry.SAMPLES = {}
+    syncs0 = host_syncs()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for tk, r in refreshes[1 : 1 + ticks]:
+        df.step(tk, r)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(registry.LAUNCHES)
+    samples, registry.SAMPLES = registry.SAMPLES, None
+    syncs = host_syncs() - syncs0
+    timed = sum(n_updates[1 : 1 + ticks])
+    out = {
+        "sf": sf, "frac": frac, "ticks": ticks, "renderer": type(df).__name__,
+        "hydrate_s": hydrate_s, "updates": timed, "seconds": elapsed,
+        "updates_per_s": timed / elapsed, "host_syncs_per_tick": syncs / ticks,
+        "launches": launches, "peak_mem_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30,
+    }
+    phase(f"q3 host: {timed} updates in {elapsed:.4f}s over {ticks} ticks = "
+          f"{out['updates_per_s']:.1f} updates/s; {out['host_syncs_per_tick']} host syncs per "
+          f"tick; peak {out['peak_mem_gib']:.2f} GiB; launches {launches}")
+    out["kernels"] = host_kernel_rows(samples, launches, "q3 host")
+    del samples
+
+    def profiled() -> dict:
+        def run():
+            for tk, r in refreshes[1 + ticks :]:
+                df.step(tk, r)
+        return {"profile": profile_host_ticks(run)}
+
+    def check() -> dict:
+        want = tpch.q3_oracle(gen._customer, gen._orders_store, gen._lineitem_store)
+        want = {k: v for k, v in want.items() if v != 0}
+        got = {(r[0], r[1], r[2]): r[3] for r in df.peek("idx_q3")}
+        if got != want:
+            raise AssertionError(f"q3 host view differs from q3_oracle: {len(got)} vs "
+                                 f"{len(want)} groups")
+        return {"groups": len(got)}
+
+    out["profiled_ticks"], out["check"] = profiled, check
+    return out
+
+
+LIVE_WINDOW = 16  # ticks a bid counts in the sliding window
+
+
+def auction_host_desc():
+    from materialize_tpu_torch.models import auction
+
+    return auction.views(auction.bids_sum_count(), auction.auctions_join_bids(),
+                         auction.max_bid_per_auction(), auction.live_bids_sum_count(LIVE_WINDOW),
+                         auction.bid_rank())
+
+
+def auction_host_check(df, gen, last_tick: int) -> dict:
+    """Every view against a NumPy oracle over the generator's host rows:
+    configs 1, 2 and 4 as in phase 7, the sliding window over the bids of
+    the last LIVE_WINDOW ticks, and each bid's row_number in its auction
+    (amount descending, then id). Large views compare the index's
+    consolidated host columns, ordered by bid id."""
+    out = {c: auction_oracle_check(c, df, gen) for c in AUCTION_CONFIGS}
+    bids = [np.concatenate(c) for c in zip(*gen.host["bids"])]
+    live = bids[4] > last_tick - LIVE_WINDOW
+    aid, amount = bids[2][live], bids[3][live]
+    n = np.bincount(aid)
+    s = np.bincount(aid, weights=amount.astype(np.float64)).astype(np.int64)
+    keys = np.flatnonzero(n)
+    want = list(zip(keys.tolist(), s[keys].tolist(), n[keys].tolist()))
+    if df.peek("idx_live_sum") != want:
+        raise AssertionError("sliding-window view differs from its oracle")
+    out["live_bids_sum_count"] = {"rows": len(want), "live_bids": int(live.sum())}
+    order = np.lexsort((bids[0], -bids[3], bids[2]))
+    first = np.r_[True, bids[2][order][1:] != bids[2][order][:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(order)), 0))
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order)) - start + 1
+    cols, ncols = df.index_traces["idx_rank"].host_columns()
+    if ncols != 6 or not (cols["diffs"] == 1).all():
+        raise AssertionError("bid_rank: index rows are not one copy each")
+    og = np.argsort(cols["c0"], kind="stable")
+    ow = np.argsort(bids[0], kind="stable")
+    same = len(og) == len(ow) and all(
+        np.array_equal(cols[f"c{i}"][og], w[ow]) for i, w in enumerate(bids + [rank]))
+    if not same:
+        raise AssertionError("bid_rank view differs from its oracle")
+    out["bid_rank"] = {"rows": len(og)}
+    return out
+
+
+def run_auction_host(device) -> dict:
+    """Phase 10: configs 1, 2 and 4, the sliding window and the bid rank in
+    one description through render_dataflow (runtime.Dataflow), at phase
+    7's size: AUCTION_HYDRATE hydration ticks, one warm-up tick,
+    AUCTION_TICKS timed ticks (launch counters zeroed just before, read
+    just after), then profiled ticks and the oracle check (closures). After
+    every tick the dataflow compacts to the tick before and its index and
+    error spines shrink to their live rows (`fit_index`): updates/s are
+    given with and without its time, its reads apart from the renderer's
+    host syncs."""
+    from materialize_tpu_torch.dataflow import render_dataflow
+    from materialize_tpu_torch.dataflow.runtime import Dataflow
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.storage import AuctionGenerator
+
+    desc = auction_host_desc()
+    df = render_dataflow(desc, device=device)
+    if not isinstance(df, Dataflow):
+        raise AssertionError(f"render_dataflow gave {type(df).__name__}, not runtime.Dataflow")
+    gen = AuctionGenerator(AUCTION_SEED, AUCTION_NEW, device=device, keep_host=True)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fitted = [0, 0.0]  # fit_index's host reads and seconds
+
+    def step(tick, batches):
+        df.step(tick, batches)
+        df.compact(tick - 1)
+        reads, secs = fit_index(df)
+        fitted[0] += reads
+        fitted[1] += secs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tick in range(1, AUCTION_HYDRATE + 1):
+        step(tick, gen.next_tick(tick, AUCTION_BIDS))
+    torch.cuda.synchronize()
+    hydrate_s = time.perf_counter() - t0
+    warm = AUCTION_HYDRATE + 1
+    step(warm, gen.next_tick(warm, AUCTION_BIDS))
+    later = [(tk, gen.next_tick(tk, AUCTION_BIDS))
+             for tk in range(warm + 1, warm + 1 + AUCTION_TICKS + PROFILED_TICKS)]
+    torch.cuda.synchronize()
+    phase(f"auction host: hydrated {AUCTION_HYDRATE} ticks in {hydrate_s:.2f}s, "
+          f"warm-up tick {warm} done")
+
+    registry.reset_launches()
+    registry.SAMPLES = {}
+    syncs0 = host_syncs()
+    fit0 = list(fitted)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for tk, b in later[:AUCTION_TICKS]:
+        step(tk, b)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(registry.LAUNCHES)
+    samples, registry.SAMPLES = registry.SAMPLES, None
+    syncs = host_syncs() - syncs0
+    fit_s = fitted[1] - fit0[1]
+    rows = AUCTION_BIDS + AUCTION_NEW
+    info = df.arrangement_info()
+    out = {
+        "views": sorted(desc.index_exports), "live_window_ticks": LIVE_WINDOW,
+        "hydrate_ticks": AUCTION_HYDRATE, "hydrate_s": hydrate_s,
+        "timed_ticks": [tk for tk, _b in later[:AUCTION_TICKS]],
+        "updates": rows * AUCTION_TICKS, "seconds": elapsed,
+        "updates_per_s": rows * AUCTION_TICKS / elapsed,
+        "fit_index_s": fit_s, "fit_index_share": fit_s / elapsed,
+        "updates_per_s_without_fit": rows * AUCTION_TICKS / (elapsed - fit_s),
+        "fit_index_reads_per_tick": (fitted[0] - fit0[0]) / AUCTION_TICKS,
+        "host_syncs_per_tick": syncs / AUCTION_TICKS, "launches": launches,
+        "state_bytes": sum(r[-1] for r in info if r[1] >= 0),
+        "index_bytes": sum(r[-1] for r in info if r[1] < 0),
+        "bytes_by_spine": {f"{r[0]}:{r[2]}": r[-1] for r in info},
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30,
+    }
+    phase(f"auction host: {out['updates']} updates in {elapsed:.4f}s over {AUCTION_TICKS} "
+          f"ticks = {out['updates_per_s']:.1f} updates/s ({out['updates_per_s_without_fit']:.1f} "
+          f"without fit_index, {out['fit_index_share']:.4f} of the wall, "
+          f"{out['fit_index_reads_per_tick']} reads per tick); {out['host_syncs_per_tick']} host "
+          f"syncs per tick; state {out['state_bytes']} B, index {out['index_bytes']} B; peak "
+          f"{out['peak_mem_gib']:.2f} GiB; launches {launches}")
+    out["kernels"] = host_kernel_rows(samples, launches, "auction host")
+    del samples
+
+    def profiled() -> dict:
+        def run():
+            for tk, b in later[AUCTION_TICKS:]:
+                step(tk, b)
+        return {"profile": profile_host_ticks(run)}
+
+    out["profiled_ticks"] = profiled
+    out["check"] = lambda: auction_host_check(df, gen, later[-1][0])
+    return out
+
+
+def _batch_bytes(b) -> list:
+    from materialize_tpu_torch import interop
+
+    return None if b is None else [a.tobytes() for a in interop.to_numpy(b)]
+
+
+def _same_results(a: dict, b: dict) -> bool:
+    if set(a) != set(b):
+        return False
+    for k in a:
+        if (a[k] is None) != (b[k] is None):
+            return False
+        if a[k] is not None and any(_batch_bytes(x) != _batch_bytes(y)
+                                    for x, y in zip(a[k], b[k])):
+            return False
+    return True
+
+
+def _peeks(df) -> dict:
+    out = {}
+    for idx in df.index_traces:
+        try:
+            out[idx] = df.peek(idx)
+        except RuntimeError as e:  # an error collection: its message
+            out[idx] = str(e)
+    return out
+
+
+def run_node_cases(device) -> dict:
+    """Phase 11: every node kind of the host renderer on the card against
+    the port's own CPU run of the same plans (models/operators.py, Q3 at sf
+    0.001, and generate_series through FusedDataflow), byte for byte after
+    every tick: each object's oks and errs, the peeks, the frontier and
+    arrangement_info. probe, probe2, multi_take and run_sum must launch."""
+    from materialize_tpu_torch.dataflow import render_dataflow
+    from materialize_tpu_torch.dataflow.fused import FusedCaps, FusedDataflow
+    from materialize_tpu_torch.models import operators as OPS
+    from materialize_tpu_torch.models import tpch
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.repr.batch import UpdateBatch
+    from materialize_tpu_torch.storage import TpchGenerator
+
+    devices = ("cpu", device)
+
+    def compare(dfs, res, what):
+        if not _same_results(res["cpu"], res[device]):
+            raise AssertionError(f"{what}: the card's outputs differ from the CPU's")
+        a, b = dfs["cpu"], dfs[device]
+        if (_peeks(a), a.frontier, a.arrangement_info()) != \
+                (_peeks(b), b.frontier, b.arrangement_info()):
+            raise AssertionError(f"{what}: the card's peeks or state differ from the CPU's")
+
+    registry.reset_launches()
+    kinds: set = set()
+    ticks_run = {}
+    cases = dict(OPS.CASES)
+    cases["series_fused"] = (OPS.series_desc, OPS.series_ticks, None)
+    for name, (desc_fn, ticks_fn, compact) in cases.items():
+        if name == "series_fused":
+            caps = FusedCaps(delta=32, arrangement=256, groups=128, join_out=16, gather=64,
+                             ratio=2)
+            dfs = {d: FusedDataflow(desc_fn(), caps, device=d) for d in devices}
+        else:
+            dfs = {d: render_dataflow(desc_fn(), device=d) for d in devices}
+            kinds |= {type(n).__name__ for _o, ops, _r in dfs[device].builds for n, _i in ops}
+        ticks = ticks_fn()
+        for tick, inputs in enumerate(ticks, start=1):
+            res = {}
+            for d, df in dfs.items():
+                batches = {s: UpdateBatch.build((), cols, np.full(len(diffs), tick), diffs,
+                                                device=d)
+                           for s, (cols, diffs) in inputs.items()}
+                res[d] = df.step(tick, batches)
+                if compact is not None and tick == compact[0]:
+                    df.compact(compact[1])
+            compare(dfs, res, f"{name} tick {tick}")
+        ticks_run[name] = len(ticks)
+    gens = {d: TpchGenerator(sf=0.001, seed=7, device=d) for d in devices}
+    dfs = {d: render_dataflow(tpch.q3(), device=d) for d in devices}
+    kinds |= {type(n).__name__ for _o, ops, _r in dfs[device].builds for n, _i in ops}
+    inits = {d: g.initial_batches(0) for d, g in gens.items()}
+    res = {d: dfs[d].step(0, {k: inits[d][k] for k in ("customer", "orders", "lineitem")})
+           for d in devices}
+    compare(dfs, res, "q3 hydration")
+    for tick in range(1, 4):
+        res = {d: dfs[d].step(tick, gens[d].refresh(tick, frac=0.01)) for d in devices}
+        compare(dfs, res, f"q3 tick {tick}")
+    ticks_run["q3_sf0.001"] = 4
+    launches = dict(registry.LAUNCHES)
+    missing = [k for k in SINGLE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"node cases: kernels not launched: {missing}")
+    from materialize_tpu_torch.dataflow.runtime import Node
+
+    every = {c.__name__ for c in Node.__subclasses__()}
+    if kinds != every:
+        raise AssertionError(f"node cases miss {sorted(every - kinds)}")
+    return {"cases": ticks_run, "node_kinds": sorted(kinds), "launches": launches}
 
 
 def main() -> int:
@@ -1319,6 +1745,12 @@ def main() -> int:
 
     auctions = {config: run_auction(config, device) for config in AUCTION_CONFIGS}
 
+    q3h = run_q3_host(device)
+    auh = run_auction_host(device)
+    nodes = run_node_cases(device)
+    phase(f"node cases: every node kind on the card equals the CPU run byte for byte: "
+          f"{json.dumps(nodes)}")
+
     # every CUDA-event timing is done: now the profiler (the short sessions
     # first: after the ticks' long ones, short ones lost events), and the views
     device_times(rows, samples)
@@ -1355,11 +1787,19 @@ def main() -> int:
         au["view"] = au.pop("check")()
         phase(f"auction {config}: view equals its oracle ({au['view']}); profile "
               f"{json.dumps(au['profile'])}")
+    for label, host in (("q3 host", q3h), ("auction host", auh)):
+        host.update(host.pop("profiled_ticks")())
+        host["view"] = host.pop("check")()
+        phase(f"{label}: views equal their oracles ({host['view']}); profile "
+              f"{json.dumps(host['profile'])}")
     rows += sh_rows
     for row in rows:
         row["launches_sharded"] = sh_launches[row["name"]]
         row["auction"] = {config: au["kernels"].get(row["name"], {"launches": 0})
                           for config, au in auctions.items()}
+        row["q3_host"] = q3h["kernels"].get(row["name"], {"launches": 0})
+        row["auction_host"] = auh["kernels"].get(row["name"], {"launches": 0})
+        row["node_cases_launches"] = nodes["launches"][row["name"]]
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],
@@ -1381,6 +1821,9 @@ def main() -> int:
     }}))
     for au in auctions.values():
         print(json.dumps({"auction": au}))
+    print(json.dumps({"q3_host": q3h}))
+    print(json.dumps({"auction_host": auh}))
+    print(json.dumps({"node_cases": nodes}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
 from . import plan
 from .plan import BuildDesc, DataflowDescription
+from .runtime import Dataflow, render_dataflow
 
-__all__ = ["plan", "BuildDesc", "DataflowDescription"]
+__all__ = ["plan", "BuildDesc", "DataflowDescription", "Dataflow", "render_dataflow"]

@@ -20,8 +20,9 @@ All state is fixed-capacity; overflow flags replace resizing. The host
 driver (`FusedDataflow`) retries a tick from the pre-tick state with
 doubled capacities when a flag trips, so results are never lossy.
 Constructs the fused path does not render (LetRec, TemporalFilter,
-BasicAgg, and FlatMap until `ops/flat_map.py` is ported) raise
-`FusedUnsupported`. The multi-worker (mesh) mode is not ported yet.
+BasicAgg, a FlatMap other than generate_series, any string function) raise
+`FusedUnsupported`; `render_dataflow` (runtime.py) then takes the host
+renderer. The multi-worker (mesh) mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,17 +67,13 @@ from .runtime import (
     batch_nbytes,
     materialize_counts,
     peek_error_message,
+    torch_dtypes,
 )
 
 # error-stream compaction buffer: errors are almost always empty, so the
 # concatenated per-operator error streams compact here before their
 # canonicalizing sort (an overflow of real error rows trips the retry)
 _ERR_COMPACT_CAP = 8192
-
-
-def torch_dtypes(dtypes) -> tuple:
-    """torch dtypes of numpy dtypes (plans carry numpy dtypes)."""
-    return tuple(torch.from_numpy(np.zeros(0, dtype=np.dtype(d))).dtype for d in dtypes)
 
 
 class FusedUnsupported(Exception):
@@ -175,9 +172,14 @@ class FusedCompiler:
 
     # -- support check ------------------------------------------------------
     def _check_supported(self, e) -> None:
-        if isinstance(e, (lir.LetRec, lir.TemporalFilter, lir.BasicAgg, lir.FlatMap)):
+        if isinstance(e, (lir.LetRec, lir.TemporalFilter, lir.BasicAgg)):
             raise FusedUnsupported(type(e).__name__)
         from ..expr.scalar import expr_has_dictfunc
+
+        if isinstance(e, lir.FlatMap) and (
+            e.func != "generate_series" or any(expr_has_dictfunc(x) for x in e.exprs)
+        ):
+            raise FusedUnsupported("FlatMap")
 
         def no_dictfunc(exprs):
             # string-function tables are host state: host path only
@@ -208,6 +210,8 @@ class FusedCompiler:
             return tuple(cols)
         if isinstance(e, (lir.Negate, lir.Threshold, lir.ArrangeBy, lir.TopK)):
             return self.infer_dtypes(e.input)
+        if isinstance(e, lir.FlatMap):
+            return self.infer_dtypes(e.input) + (np.dtype(np.int64),)
         if isinstance(e, lir.Union):
             return self.infer_dtypes(e.inputs[0])
         if isinstance(e, lir.Reduce):
@@ -340,6 +344,16 @@ class FusedCompiler:
             for p in parts[1:]:
                 acc = UpdateBatch.concat(acc, p)
             return consolidate(acc)
+        if isinstance(e, lir.FlatMap):
+            # generate_series has a static fan-out bound (caps.join_out) and
+            # an overflow flag, so it fuses like a sized join
+            from ..ops.flat_map import flat_map_materialize
+
+            out, errs, over = flat_map_materialize(self._emit(e.input, ctx), e.exprs,
+                                                   self.caps.join_out)
+            ctx.errs.append(errs)
+            ctx.overflow.append(over)
+            return out
         if isinstance(e, lir.Join):
             return self._emit_join(e, ctx)
         if isinstance(e, lir.Reduce):

@@ -1,2 +1,10 @@
 from .linear import MapFilterProject  # noqa: F401
-from .scalar import CallBinary, Column, EvalErr, Literal  # noqa: F401
+from .scalar import (  # noqa: F401
+    CallBinary,
+    CallUnary,
+    CallVariadic,
+    Column,
+    DictFunc,
+    EvalErr,
+    Literal,
+)

@@ -14,6 +14,15 @@ imports JAX: the caller flattens the JAX side itself
 A mesh-sharded JAX state is one global pytree whose every leaf is split on
 axis 0 into equal parts, one per device; `split_leaves` cuts such leaves
 into one list per worker, and `join_leaves` puts per-worker lists back.
+
+`load_dataflow(dst, src)` carries the state of a host-rendered JAX
+`runtime.Dataflow` into a port `Dataflow` rendered from the same
+description: every node's arrangements, accumulator tables, temporal
+pending batch and host state (basic aggregates' multisets, a LetRec's inner
+dataflow and iteration clock), the index and error traces, the frontier,
+`since` and the operator metrics. It reads the JAX objects by duck typing
+(their attributes and class names); their arrays convert through
+`np.asarray`.
 """
 
 from __future__ import annotations
@@ -27,6 +36,25 @@ from .arrangement.lsm import LsmAccums, LsmBatches
 from .models.fused_q3 import Q3State
 from .ops.reduce import AccumState
 from .repr.batch import UpdateBatch
+
+# host-renderer node state, by node class: the attributes `load_dataflow`
+# carries (every other attribute is plan, fixed at render time)
+_NODE_STATE = {
+    "ConstantNode": ("emitted",),
+    "ArrangeByNode": ("arr",),
+    "LinearJoinNode": ("state",),
+    "DeltaJoinNode": ("arrs",),
+    "ReduceNode": ("state",),
+    "FusedMfpReduceNode": ("state", "state_cap"),
+    "BasicAggNode": ("groups", "current"),
+    "DistinctNode": ("state",),
+    "ThresholdNode": ("state",),
+    "TopKNode": ("arr",),
+    "WindowNode": ("arr",),
+    "MonotonicTopKNode": ("out_arr",),
+    "TemporalFilterNode": ("pending",),
+    "LetRecNode": ("inner_time", "started"),
+}
 
 
 def _walk(obj) -> Iterator[tuple[torch.Tensor, bool]]:
@@ -119,3 +147,70 @@ def split_leaves(arrays, n: int) -> list[list[np.ndarray]]:
 def join_leaves(parts) -> list[np.ndarray]:
     """One list of leaves per worker -> the global leaves (axis 0)."""
     return [np.concatenate(ws) for ws in zip(*parts)]
+
+
+def _tensor(a, u32: bool, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if u32 != (a.dtype == np.uint32):
+        raise TypeError(f"leaf dtype {a.dtype} does not match the port's layout")
+    return torch.tensor(a.astype(np.int64) if u32 else a, device=device)
+
+
+def _carry(v, device):
+    """A port object holding the value of JAX host-renderer state `v`."""
+    from .arrangement.spine import Arrangement
+    from .dataflow.antichain import Antichain
+
+    kind = type(v).__name__
+    if v is None or isinstance(v, (int, float)):
+        return v
+    if kind == "UpdateBatch":
+        return UpdateBatch(_tensor(v.hashes, True, device),
+                           tuple(_tensor(k, False, device) for k in v.keys),
+                           tuple(_tensor(c, False, device) for c in v.vals),
+                           _tensor(v.times, True, device), _tensor(v.diffs, False, device))
+    if kind == "AccumState":
+        return AccumState(_tensor(v.hashes, True, device),
+                          tuple(_tensor(k, False, device) for k in v.keys),
+                          tuple(_tensor(a, False, device) for a in v.accums),
+                          _tensor(v.nrows, False, device))
+    if kind == "Arrangement":
+        return Arrangement(key_cols=tuple(v.key_cols),
+                           batches=[_carry(b, device) for b in v.batches],
+                           since=int(v.since), holds=dict(v.holds), device=device)
+    if kind == "Antichain":
+        return Antichain(tuple(int(t) for t in v.elements))
+    if isinstance(v, dict):  # keys are host values (group keys, reader names)
+        return {k: _carry(x, device) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_carry(x, device) for x in v)
+    raise TypeError(f"cannot carry {kind}")
+
+
+def load_dataflow(dst, src) -> None:
+    """Load JAX `runtime.Dataflow` `src`'s state into port Dataflow `dst`
+    (rendered from the same description, on its own device)."""
+    dev = dst.device
+    if len(dst.builds) != len(src.builds):
+        raise ValueError("the two dataflows render different descriptions")
+    for (d_id, d_ops, _r), (s_id, s_ops, _s) in zip(dst.builds, src.builds):
+        if d_id != s_id or len(d_ops) != len(s_ops):
+            raise ValueError(f"object {d_id} renders differently")
+        for (dn, _di), (sn, _si) in zip(d_ops, s_ops):
+            name = type(dn).__name__
+            if name != type(sn).__name__:
+                raise ValueError(f"node {name} against {type(sn).__name__}")
+            for attr in _NODE_STATE.get(name, ()):
+                setattr(dn, attr, _carry(getattr(sn, attr), dev))
+            if name == "BasicAggNode":
+                # the rendered values are codes of the node's dictionary
+                dn.dct._strs[:] = list(sn.dct._strs)
+                dn.dct._code.clear()
+                dn.dct._code.update(sn.dct._code)
+            if name == "LetRecNode":
+                load_dataflow(dn.inner, sn.inner)
+    for spines in ("index_traces", "index_errs"):
+        setattr(dst, spines, {k: _carry(a, dev) for k, a in getattr(src, spines).items()})
+    dst._frontier = _carry(src._frontier, dev)
+    dst._last_complete = int(src._last_complete)
+    dst.metrics = {k: dict(m) for k, m in src.metrics.items()}

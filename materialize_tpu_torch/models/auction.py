@@ -5,6 +5,12 @@ three auction-source views:
   1. SUM/COUNT materialized view over append-only bids   (single reduce)
   2. auctions ⋈ bids two-way equi-join                   (linear join)
   4. max-bid-per-auction TOP-K                           (topk kernel)
+and two views of the port's own, which only the host renderer renders:
+  - the sliding window of Materialize's temporal-filter documentation:
+    SUM/COUNT by auction of the bids of the last `window` ticks
+    (TemporalFilter, then a reduce);
+  - each bid's rank in its auction by amount (a row_number Window).
+`views()` exports several of them from one description.
 
 Schemas follow the reference auction load generator
 (src/storage-types/src/sources/load_generator.rs:185-240):
@@ -17,9 +23,10 @@ import numpy as np
 
 from ..dataflow import BuildDesc, DataflowDescription
 from ..dataflow import plan as lir
-from ..expr import Column, Literal
+from ..expr import CallBinary, Column, Literal, MapFilterProject
 from ..ops.reduce import AggregateExpr
 from ..ops.topk import TopKPlan
+from ..ops.window import WindowFuncSpec, WindowPlan
 
 I64 = np.dtype(np.int64)
 
@@ -85,3 +92,50 @@ def max_bid_per_auction() -> DataflowDescription:
         ],
         index_exports={"idx_topk": ("mv_topk", (0,))},
     )
+
+
+def live_bids_sum_count(window: int = 16) -> DataflowDescription:
+    """SELECT auction_id, sum(amount), count(*) FROM bids
+    WHERE mz_now() < bid_time + window GROUP BY 1: each bid counts for
+    `window` ticks from its bid_time, then is retracted by the passage of
+    time (an upper bound only)."""
+    live = lir.TemporalFilter(lir.Get("bids"), lowers=(),
+                              uppers=(CallBinary("add", Column(4), Literal(window)),))
+    keyed = lir.Mfp(live, MapFilterProject(5, projection=(2, 3)))
+    return DataflowDescription(
+        source_imports={"bids": BIDS_DTYPES},
+        objects_to_build=[BuildDesc(
+            "mv_live_sum",
+            lir.Reduce(keyed, key_cols=(0,),
+                       aggs=(AggregateExpr("sum", Column(1)), AggregateExpr("count", Literal(1)))),
+            (I64, I64, I64))],
+        index_exports={"idx_live_sum": ("mv_live_sum", (0,))},
+    )
+
+
+def bid_rank() -> DataflowDescription:
+    """SELECT *, row_number() OVER (PARTITION BY auction_id ORDER BY amount
+    DESC, id) FROM bids."""
+    plan = WindowPlan(partition_cols=(2,), order_by=((3, True), (0, False)),
+                      funcs=(WindowFuncSpec("row_number"),))
+    return DataflowDescription(
+        source_imports={"bids": BIDS_DTYPES},
+        objects_to_build=[BuildDesc("mv_rank", lir.Window(lir.Get("bids"), plan),
+                                    BIDS_DTYPES + (I64,))],
+        index_exports={"idx_rank": ("mv_rank", (2,))},
+    )
+
+
+def views(*descs: DataflowDescription) -> DataflowDescription:
+    """One description exporting every object and index of `descs` (their
+    ids must differ; their sources must agree)."""
+    sources: dict = {}
+    builds, indexes = [], {}
+    for d in descs:
+        for sid, dts in d.source_imports.items():
+            if sources.setdefault(sid, dts) != dts:
+                raise ValueError(f"source {sid} differs between views")
+        builds += d.objects_to_build
+        indexes.update(d.index_exports)
+    return DataflowDescription(source_imports=sources, objects_to_build=builds,
+                               index_exports=indexes)

@@ -1,18 +1,97 @@
-"""TPC-H Q3 constants and its brute-force oracle.
+"""TPC-H Q3: its dataflow description and its brute-force oracle.
 
-Counterpart of materialize_tpu/models/tpch.py (`BUILDING`, `Q3_DATE`,
-`q3_oracle`). Revenue ``l_extendedprice * (1 - l_discount)`` is planned as
-``extendedprice_cents * (100 - discount_pct)``: exact integer arithmetic.
+Counterpart of materialize_tpu/models/tpch.py (`q3`, `BUILDING`, `Q3_DATE`,
+`q3_oracle`). `q3()` plans Q3 as a three-way delta join and a GROUP BY for
+the renderers of dataflow/ (by default `runtime.Dataflow`): each input's
+update stream flows through the other inputs' arrangements, then an
+accumulable SUM reduce. Revenue ``l_extendedprice * (1 - l_discount)`` is
+planned as ``extendedprice_cents * (100 - discount_pct)``: exact integer
+arithmetic.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..dataflow import plan as lir
+from ..dataflow.plan import BuildDesc, DataflowDescription
+from ..expr import CallBinary, Column, Literal, MapFilterProject
+from ..ops.reduce import AggregateExpr
 from ..storage.generator import date_num
+
+I64 = np.dtype(np.int64)
+
+CUSTOMER_DTYPES = (I64, I64, I64)  # custkey, mktsegment(code), nationkey
+ORDERS_DTYPES = (I64, I64, I64, I64)  # orderkey, custkey, orderdate, shippriority
+LINEITEM_DTYPES = (I64, I64, I64, I64, I64, I64)
+# orderkey, extendedprice(cents), discount(pct), shipdate, quantity, partkey
 
 BUILDING = 1  # segment code of 'BUILDING' in the generator's segment table
 Q3_DATE = int(date_num(1995, 3, 15))
+
+
+def q3() -> DataflowDescription:
+    """TPC-H Q3:
+    SELECT l_orderkey, sum(l_extendedprice*(1-l_discount)) AS revenue,
+           o_orderdate, o_shippriority
+    FROM customer, orders, lineitem
+    WHERE c_mktsegment='BUILDING' AND c_custkey=o_custkey AND l_orderkey=o_orderkey
+      AND o_orderdate < '1995-03-15' AND l_shipdate > '1995-03-15'
+    GROUP BY l_orderkey, o_orderdate, o_shippriority
+    """
+    cust = lir.Mfp(
+        lir.Get("customer"),
+        MapFilterProject(3, predicates=(CallBinary("eq", Column(1), Literal(BUILDING)),),
+                         projection=(0,)),  # (custkey)
+    )
+    orders = lir.Mfp(
+        lir.Get("orders"),
+        MapFilterProject(4, predicates=(CallBinary("lt", Column(2), Literal(Q3_DATE)),),
+                         projection=(0, 1, 2, 3)),  # (orderkey, custkey, orderdate, shippriority)
+    )
+    lineitem = lir.Mfp(
+        lir.Get("lineitem"),
+        MapFilterProject(6, predicates=(CallBinary("gt", Column(3), Literal(Q3_DATE)),),
+                         projection=(0, 1, 2)),  # (orderkey, extendedprice, discount)
+    )
+    # delta join over r0=cust(ck) r1=orders(ok,ck,od,sp) r2=lineitem(lk,ep,dc)
+    paths = (
+        (  # d customer: join orders on custkey, then lineitem on orderkey
+            lir.DeltaPathStage(other_input=1, stream_key=(0,), lookup_key=(1,)),
+            lir.DeltaPathStage(other_input=2, stream_key=(1,), lookup_key=(0,)),
+        ),
+        (  # d orders: join customer on custkey, then lineitem on orderkey
+            lir.DeltaPathStage(other_input=0, stream_key=(1,), lookup_key=(0,)),
+            lir.DeltaPathStage(other_input=2, stream_key=(0,), lookup_key=(0,)),
+        ),
+        (  # d lineitem: join orders on orderkey, then customer on custkey
+            lir.DeltaPathStage(other_input=1, stream_key=(0,), lookup_key=(0,)),
+            lir.DeltaPathStage(other_input=0, stream_key=(4,), lookup_key=(0,)),
+        ),
+    )
+    perms = (
+        (0, 1, 2, 3, 4, 5, 6, 7),  # ck | ok,ck,od,sp | lk,ep,dc
+        (4, 0, 1, 2, 3, 5, 6, 7),  # ok,ck,od,sp | ck | lk,ep,dc
+        (7, 3, 4, 5, 6, 0, 1, 2),  # lk,ep,dc | ok,ck,od,sp | ck
+    )
+    # closure: revenue contribution at scale 4, project group cols + revenue
+    closure = MapFilterProject(
+        8,
+        map_exprs=(CallBinary("mul", Column(6), CallBinary("sub", Literal(100), Column(7))),),
+        projection=(5, 3, 4, 8),  # (l_orderkey, o_orderdate, o_shippriority, rev)
+    )
+    join = lir.Join(inputs=(cust, orders, lineitem),
+                    plan=lir.DeltaJoinPlan(paths=paths, permutations=perms), closure=closure)
+    q3_reduce = lir.Reduce(join, key_cols=(0, 1, 2), aggs=(AggregateExpr("sum", Column(3)),))
+    return DataflowDescription(
+        source_imports={
+            "customer": CUSTOMER_DTYPES,
+            "orders": ORDERS_DTYPES,
+            "lineitem": LINEITEM_DTYPES,
+        },
+        objects_to_build=[BuildDesc("mv_q3", q3_reduce, (I64, I64, I64, I64))],
+        index_exports={"idx_q3": ("mv_q3", (0, 1, 2))},
+    )
 
 
 def q3_oracle(customer, orders, lineitem, building_code: int = BUILDING) -> dict:

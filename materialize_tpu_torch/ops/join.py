@@ -93,13 +93,17 @@ def _materialize_ranges(probe: UpdateBatch, arr: UpdateBatch, lo, counts, out_ca
     )
 
 
-def join_against(probe: UpdateBatch, batches: list) -> list:
+def join_against(probe: UpdateBatch, batches: list, swap: bool = False) -> list:
     """Join a probe batch against every batch of an arrangement (host driver:
-    one host read of each count). Returns the non-empty raw outputs."""
+    one host read of each count, counted in reduce.HOST_SYNCS). Returns the
+    non-empty raw outputs."""
+    from .reduce import host_int
+
     outs = []
     for arr in batches:
-        total = int(join_total(probe, arr))
+        lo, counts = _probe_ranges(probe, arr)
+        total = host_int(counts.sum())
         if total == 0:
             continue
-        outs.append(join_materialize(probe, arr, bucket_cap(total)))
+        outs.append(_materialize_ranges(probe, arr, lo, counts, bucket_cap(total), swap))
     return outs

@@ -7,8 +7,8 @@ against the table (`lookup_accums`) and emitted self-correctingly as
 (-old aggregate, +new aggregate) per affected key (`_emit_output`).
 Float sums accumulate in i64 fixed point (`AggregateExpr.fixed_scale`), so
 every accumulator column, and `run_sum`, stays integer; the emitted column
-descales to float32. The host-driven `accumulable_step` comes with the
-host runtime.
+descales to float32. `accumulable_step` is the host-driven tick of the
+host renderer's ReduceNode.
 """
 
 from __future__ import annotations
@@ -31,10 +31,19 @@ from .search import searchsorted, searchsorted2, sort_perm
 _MAX_HASH_COLLISIONS = 4
 _WIDE_HASH_COLLISIONS = 64
 
-# Host reads made by `lookup_accums` to decide the widening (one each),
-# counted under a lock: mesh workers look up from their own threads.
-HOST_SYNCS = {"lookup_widen": 0}
+# Host reads, counted under a lock (mesh workers look up from their own
+# threads): "lookup_widen", the one `lookup_accums` makes to decide the
+# widening; "host_path", every count that the host renderer
+# (dataflow/runtime.py) and its operators read to size a buffer or skip work.
+HOST_SYNCS = {"lookup_widen": 0, "host_path": 0}
 _SYNCS_LOCK = threading.Lock()
+
+
+def host_int(t: torch.Tensor) -> int:
+    """Read a 0-d device tensor on the host, counted in HOST_SYNCS["host_path"]."""
+    with _SYNCS_LOCK:
+        HOST_SYNCS["host_path"] += 1
+    return int(t)
 
 
 @dataclass
@@ -365,3 +374,25 @@ def _emit_output(delta_keys: AccumState, old_accums, old_nrows, time: int,
     )
     diffs = interleave(-old_present.to(DIFF_DTYPE), new_present.to(DIFF_DTYPE))
     return UpdateBatch(hashes, (), vals, times, diffs)
+
+
+def accumulable_step(state: AccumState, delta: UpdateBatch, key_cols: tuple[int, ...],
+                     aggs: tuple, time: int):
+    """One tick of an accumulable reduce: (state, delta, t) -> (state', out, errs).
+
+    `out` is consolidated (unchanged -old/+new pairs cancel); rows whose
+    aggregate input errors land in `errs`. The state's capacity grows as
+    needed; callers rebucket.
+    """
+    from .consolidate import consolidate
+
+    raw_contrib, errs = _contributions(delta, key_cols, aggs)
+    contrib = consolidate_accums(raw_contrib)
+    _found, old_accums, old_nrows, missed = lookup_accums(state, contrib)
+    out = consolidate(_emit_output(contrib, old_accums, old_nrows, time, aggs))
+    errs = consolidate(UpdateBatch.concat(errs, collision_errs(contrib, missed, time)))
+    ov = accum_overflow_errs(contrib, old_accums, aggs, time)
+    if ov is not None:
+        errs = consolidate(UpdateBatch.concat(errs, ov))
+    new_state = consolidate_accums(AccumState.concat(state, contrib))
+    return new_state, out, errs

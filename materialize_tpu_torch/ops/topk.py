@@ -5,8 +5,9 @@ runs. A tick gathers the full contents of every group its delta touches
 (`distinct_keys`, then `_gather_materialize` against each arrangement
 level), ranks each group's rows with one sort and windows them by
 [offset, offset + limit) over a segmented running sum of multiplicities
-(`topk_select`); the output is new top-k minus old top-k. The host-driven
-`gather_groups` and `topk_step` come with the host runtime.
+(`topk_select`); the output is new top-k minus old top-k. `gather_groups`
+and `topk_step` are the host renderer's tick, sized by one host read of
+each level's match count.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from dataclasses import dataclass
 import torch
 
 from ..expr.scalar import derived_null
-from ..repr.batch import DIFF_DTYPE, PAD_TIME, UpdateBatch, device_time_scalar
+from ..repr.batch import DIFF_DTYPE, PAD_TIME, UpdateBatch, bucket_cap, device_time_scalar
 from ..repr.hashing import PAD_HASH, value_view
-from .consolidate import _masked, row_equal_prev
+from .consolidate import _masked, advance_times, consolidate, row_equal_prev
 from .kernels import batch_permute, multi_take
 from .search import searchsorted, sort_perm
 
@@ -110,6 +111,44 @@ def _gather_rows(probes: UpdateBatch, arr: UpdateBatch, lo, counts, out_cap: int
         times=_masked(ok, a_row.times, PAD_TIME),
         diffs=_masked(ok, a_row.diffs, 0),
     )
+
+
+def gather_groups(probes: UpdateBatch, batches: list, as_of: int,
+                  val_dtypes=()) -> UpdateBatch:
+    """Current contents (as of `as_of`) of every probed group, consolidated:
+    each arrangement batch is searched once, its match count read on the
+    host to size the gather."""
+    from .reduce import host_int
+
+    parts = []
+    for arr in batches:
+        lo, counts = _gather_ranges(probes, arr)
+        total = host_int(counts.sum())
+        if total:
+            parts.append(_gather_rows(probes, arr, lo, counts, bucket_cap(total)))
+    if not parts:
+        return UpdateBatch.empty(8, tuple(k.dtype for k in probes.keys), val_dtypes,
+                                 device=probes.device)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = UpdateBatch.concat(acc, p)
+    return consolidate(advance_times(acc, as_of))
+
+
+def topk_step(arrangement, delta_keyed: UpdateBatch, plan: TopKPlan, time: int) -> UpdateBatch:
+    """One tick of TopK: new top-k minus old top-k of the touched groups.
+
+    `arrangement` is the input keyed by plan.group_cols, as `delta_keyed`
+    is; this inserts the delta into it."""
+    probes = distinct_keys(delta_keyed)
+    vdt = tuple(v.dtype for v in delta_keyed.vals)
+    old_rows = gather_groups(probes, arrangement.batches, time, vdt)
+    arrangement.insert(delta_keyed, already_keyed=True)
+    new_rows = gather_groups(probes, arrangement.batches, time, vdt)
+    p = plan
+    old_top = topk_select(old_rows, p.order_by, p.limit, p.offset, time, p.nulls_last)
+    new_top = topk_select(new_rows, p.order_by, p.limit, p.offset, time, p.nulls_last)
+    return consolidate(UpdateBatch.concat(new_top, negate(old_top)))
 
 
 def topk_select(rows: UpdateBatch, order_by, limit, offset: int, time: int,

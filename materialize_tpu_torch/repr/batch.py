@@ -181,3 +181,17 @@ class UpdateBatch:
             k: (tuple(c[order] for c in v) if isinstance(v, tuple) else v[order])
             for k, v in rows.items()
         }
+
+    def to_rows(self) -> list[tuple]:
+        """Host rows as (val-cols tuple, time, diff) triples in canonical
+        order; float NaN (the float NULL sentinel) becomes None."""
+        h = self.to_host()
+        cols = []
+        for c in h["vals"]:
+            lst = c.tolist()
+            if c.dtype.kind == "f":
+                lst = [None if x != x else x for x in lst]
+            cols.append(lst)
+        times, diffs = h["times"].tolist(), h["diffs"].tolist()
+        data = list(zip(*cols)) if cols else [()] * len(times)
+        return [(row, int(t), int(d)) for row, t, d in zip(data, times, diffs)]

@@ -1,7 +1,8 @@
 """Host-side string interning.
 
-Counterpart of materialize_tpu/repr/types.py::StringDictionary, as far as
-the load generators need it (encoding). The device only ever sees dense
+Counterpart of materialize_tpu/repr/types.py::StringDictionary: encoding
+for the load generators, decoding for string functions (expr/strings.py)
+and basic aggregates. The device only ever sees dense
 int64 codes; equality (GROUP BY, join keys) is exact. Code order is
 insertion order, not collation order.
 """
@@ -28,3 +29,19 @@ class StringDictionary:
 
     def encode_many(self, xs) -> np.ndarray:
         return np.array([self.encode(x) for x in xs], dtype=np.int64)
+
+    def decode(self, code: int) -> str:
+        c = int(code)
+        if not (0 <= c < len(self._strs)):
+            raise ValueError(f"unknown string dictionary code {c}")
+        return self._strs[c]
+
+    def decode_many(self, codes) -> list[str]:
+        return [self._strs[int(c)] for c in codes]
+
+    def lookup(self, s: str) -> int | None:
+        """Code for `s` if already interned, else None."""
+        return self._code.get(s)
+
+    def __len__(self) -> int:
+        return len(self._strs)

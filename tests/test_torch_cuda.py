@@ -317,3 +317,13 @@ def test_cuda_fused_max_bid_per_auction_equals_cpu(cuda_device):
     assert dfs["cpu"].peek("idx_topk") == dfs[cuda_device].peek("idx_topk")
     for k in ("probe", "probe2", "multi_take", "run_sum"):
         assert registry.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.cuda
+def test_cuda_host_renderer_every_node_kind_equals_cpu(cuda_device):
+    """chip_smoke's phase 11: every node kind of runtime.Dataflow (the
+    cases of models/operators.py, Q3 at sf 0.001, generate_series through
+    FusedDataflow) on the card against the CPU, byte for byte after every
+    tick, with probe, probe2, multi_take and run_sum launched."""
+    out = _chip_smoke().run_node_cases(cuda_device)
+    assert "LetRecNode" in out["node_kinds"] and "DeltaJoinNode" in out["node_kinds"]
