@@ -68,8 +68,25 @@ on any error:
    spine rebucketed (`fit_index`, timed apart: updates/s with and without
    it); the launch checks and replays of phase 9;
 11. every node kind of the host renderer (models/operators.py, Q3 at sf
-   0.001, `generate_series` through `FusedDataflow`) on the card against
-   the port's own CPU run, byte for byte after every tick;
+   0.001, `generate_series` through `FusedDataflow`, and two dataflows
+   sharing arrangements through a TraceManager, the shared nodes among
+   them) on the card against the port's own CPU run, byte for byte after
+   every tick;
+12. SQL through the port's `Coordinator` (adapter/coordinator.py), which
+   plans, optimizes and lowers the SQL text and renders each materialized
+   view with `render_dataflow` and the shared arrangements of
+   arrangement/trace_manager.py: (a) TPC-H Q3 as SQL text at SF1 (the
+   source, the view hydrated from the storage snapshots, one warm-up and
+   five timed `advance()` ticks of the coordinator's RF1/RF2 refresh at
+   frac 0.001); (b) the README's auction source with 64
+   `advance(n_rows=65536)` ticks before any view (2^22 bids), then three
+   views over `bids` (the README's `totals`, the max bid per auction and
+   auctions ⋈ bids; the last two share the auctions and bids arrangements,
+   and at least one import must hit), one warm-up and five timed ticks.
+   In both the launch counters are zeroed just before the timed ticks and
+   read just after: `probe`, `multi_take` and `run_sum` must launch
+   (`probe2` where the plan merges spines), and each launched kernel is
+   replayed at its largest call against its plain version (exact);
 8. the profiler, after every CUDA-event timing (a profiler session can
    slow the process's later launches): each kernel's and library call's
    device time at its largest call (`kernel_device_ms`,
@@ -83,13 +100,18 @@ on any error:
    and device span), and each auction view against a NumPy oracle over
    every generated bid and auction; then two profiled ticks of phases 9
    and 10 each, phase 9's view against `q3_oracle` and phase 10's views
-   against NumPy oracles over the generator's host rows.
+   against NumPy oracles over the generator's host rows; then two
+   profiled ticks of phase 12a and 12b each, `SELECT * FROM q3` against
+   `q3_oracle` over the generator's host rows, and the auction views and
+   `SELECT * FROM totals ORDER BY total DESC LIMIT 5` against NumPy
+   oracles over every generated bid and auction.
 
-Phase 8 runs last, after phases 9 to 11, so that every CUDA-event timing
+Phase 8 runs last, after phases 9 to 12, so that every CUDA-event timing
 precedes the first profiler session.
 
 It prints one JSON line a path (`q3`, `q3_sharded`, one `auction` line a
-config, `q3_host`, `auction_host`, `node_cases`), the card's name and power limit, the kernel table as one JSON
+config, `q3_host`, `auction_host`, `node_cases`, `sql_q3`,
+`sql_auction`), the card's name and power limit, the kernel table as one JSON
 line, then the device line as the last line. It exits non-zero, printing
 no result, without a CUDA device.
 """
@@ -1608,11 +1630,67 @@ def _peeks(df) -> dict:
     return out
 
 
+def run_shared_case(device, compare) -> tuple:
+    """Phase 11's shared arrangements: on each device, two dataflows of
+    models/operators.py's `shared_desc` read one TraceManager (the second
+    rendered at as_of 3 and hydrated from the sources' snapshots), the
+    card's against the CPU's after every tick, `sharing_rows` too. Returns
+    (ticks, the node kinds rendered)."""
+    from materialize_tpu_torch.arrangement.trace_manager import TraceManager
+    from materialize_tpu_torch.dataflow import render_dataflow
+    from materialize_tpu_torch.models import operators as OPS
+    from materialize_tpu_torch.repr.batch import UpdateBatch
+
+    devices = ("cpu", device)
+    tms = {d: TraceManager() for d in devices}
+    dfs = {(d, "mv1"): render_dataflow(OPS.shared_desc("first"), traces=tms[d],
+                                       trace_reader="mv1", device=d) for d in devices}
+    hist: dict = {s: [] for s in OPS.SHARED_SOURCES}
+
+    def batches(d, parts, tick):
+        out = {}
+        for src, cols_diffs in parts.items():
+            cols = tuple(np.concatenate([c[i] for c, _ in cols_diffs])
+                         for i in range(len(OPS.SHARED_SOURCES[src])))
+            diffs = np.concatenate([df for _, df in cols_diffs])
+            out[src] = UpdateBatch.build((), cols, np.full(len(diffs), tick), diffs, device=d)
+        return out
+
+    def check(names, res, what):
+        for name in names:
+            compare({d: dfs[(d, name)] for d in devices},
+                    {d: res[(d, name)] for d in devices}, f"shared {name} {what}")
+        if tms["cpu"].sharing_rows() != tms[device].sharing_rows():
+            raise AssertionError(f"shared {what}: the card's sharing rows differ")
+
+    ticks = OPS.shared_ticks(5)
+    for tick, inputs in enumerate(ticks, start=1):
+        for src, cd in inputs.items():
+            hist[src].append(cd)
+        names = ["mv1"] if tick < 4 else ["mv1", "mv2"]
+        res = {(d, n): dfs[(d, n)].step(tick, batches(d, {s: [c] for s, c in inputs.items()},
+                                                       tick))
+               for d in devices for n in names}
+        check(names, res, f"tick {tick}")
+        if tick == 3:  # a late import, hydrated from the snapshots at as_of 3
+            for d in devices:
+                dfs[(d, "mv2")] = render_dataflow(OPS.shared_desc("second", 3), traces=tms[d],
+                                                  trace_reader="mv2", device=d)
+            res = {(d, "mv2"): dfs[(d, "mv2")].step(3, batches(d, hist, 3)) for d in devices}
+            check(["mv2"], res, "hydration")
+    if tms[device].stats["imports"] <= 0:
+        raise AssertionError("shared: no import hit")
+    kinds = {type(n).__name__ for (d, _n), df in dfs.items() if d == device
+             for _o, ops, _r in df.builds for n, _i in ops}
+    return len(ticks), kinds
+
+
 def run_node_cases(device) -> dict:
     """Phase 11: every node kind of the host renderer on the card against
     the port's own CPU run of the same plans (models/operators.py, Q3 at sf
-    0.001, and generate_series through FusedDataflow), byte for byte after
-    every tick: each object's oks and errs, the peeks, the frontier and
+    0.001, generate_series through FusedDataflow, and two dataflows
+    sharing arrangements through a TraceManager), byte for byte after every
+    tick: each object's oks and errs, the peeks, the frontier and
     arrangement_info. probe, probe2, multi_take and run_sum must launch."""
     from materialize_tpu_torch.dataflow import render_dataflow
     from materialize_tpu_torch.dataflow.fused import FusedCaps, FusedDataflow
@@ -1668,6 +1746,8 @@ def run_node_cases(device) -> dict:
         res = {d: dfs[d].step(tick, gens[d].refresh(tick, frac=0.01)) for d in devices}
         compare(dfs, res, f"q3 tick {tick}")
     ticks_run["q3_sf0.001"] = 4
+    ticks_run["shared"], shared_kinds = run_shared_case(device, compare)
+    kinds |= shared_kinds
     launches = dict(registry.LAUNCHES)
     missing = [k for k in SINGLE_PATH if launches[k] <= 0]
     if missing:
@@ -1678,6 +1758,265 @@ def run_node_cases(device) -> dict:
     if kinds != every:
         raise AssertionError(f"node cases miss {sorted(every - kinds)}")
     return {"cases": ticks_run, "node_kinds": sorted(kinds), "launches": launches}
+
+
+
+# -- phase 12: SQL through the port's Coordinator ------------------------------------
+
+SQL_Q3 = """CREATE MATERIALIZED VIEW q3 AS
+    SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue,
+           o_orderdate, o_shippriority
+    FROM customer, orders, lineitem
+    WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
+      AND l_orderkey = o_orderkey AND o_orderdate < DATE '1995-03-15'
+      AND l_shipdate > DATE '1995-03-15'
+    GROUP BY l_orderkey, o_orderdate, o_shippriority"""
+SQL_AUCTION_VIEWS = {
+    # the README's view
+    "totals": "CREATE MATERIALIZED VIEW totals AS SELECT auction_id, sum(amount) AS total, "
+              "count(*) AS n FROM bids GROUP BY auction_id",
+    "max_bid": "CREATE MATERIALIZED VIEW max_bid AS SELECT auctions.id, "
+               "max(bids.amount) AS top FROM auctions, bids "
+               "WHERE auctions.id = bids.auction_id GROUP BY auctions.id",
+    "auction_bids": "CREATE MATERIALIZED VIEW auction_bids AS SELECT auctions.id, "
+                    "auctions.seller, bids.buyer, bids.amount FROM auctions, bids "
+                    "WHERE auctions.id = bids.auction_id",
+}
+SQL_TIMED = 5  # timed advance() ticks of each SQL phase, after one warm-up tick
+
+
+def sql_kernel_rows(samples: dict, launches: dict, what: str) -> dict:
+    """As host_kernel_rows, for a SQL phase: `probe`, `multi_take` and
+    `run_sum` must launch in the timed ticks, `probe2` only if the plan
+    merged spines there; each launched kernel's largest call is replayed
+    against its plain version (exact) and timed."""
+    missing = [k for k in ("probe", "multi_take", "run_sum") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+    rows = {}
+    for k in SINGLE_PATH:
+        if launches[k] <= 0:
+            rows[k] = {"launches": 0}
+            continue
+        shape, (kern, _plain, _library, moved), err = check_largest(k, samples)
+        rows[k] = {"launches": launches[k], "shape": list(shape), "max_abs_err": err,
+                   "ms": time_ms(kern), "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        phase(f"{what}: {k} equals its plain version at its largest call {list(shape)}: "
+              f"{rows[k]['ms']:.4f} ms, bound {rows[k]['bound_ms']:.4f} ms")
+    return rows
+
+
+def _source_records(coord) -> int:
+    return sum(st["records"] for st in coord.source_stats.values())
+
+
+def _timed_sources(coord) -> list:
+    """Time every generator's batch-making call (the sources' host work
+    inside advance()): wraps each generator's `refresh`/`next_tick` and
+    returns the list the wrappers add their seconds to."""
+    spent = [0.0]
+    for gen, _gids in coord.generators:
+        for name in ("refresh", "next_tick"):
+            fn = getattr(gen, name, None)
+            if fn is None:
+                continue
+
+            def timed(*a, _fn=fn, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+            setattr(gen, name, timed)
+    return spent
+
+
+def _dataflow_s(coord) -> float:
+    """Seconds the coordinator's dataflows have spent in `step` so far (its
+    per-dataflow tick histogram, mzt_dataflow_tick_duration_ns)."""
+    from materialize_tpu_torch.adapter.coordinator import _TICK_NS
+
+    total = 0.0
+    for gid, _df, _srcs in coord.dataflows:
+        v = _TICK_NS.value(dataflow=gid)
+        total += v[1] if v else 0.0
+    return total / 1e9
+
+
+def timed_advances(coord, what: str, n_rows: int | None = None) -> dict:
+    """One warm-up advance(), then SQL_TIMED timed ones with the launch
+    counters zeroed just before and read just after: updates/s (the rows
+    the sources committed over the synchronized wall time), host syncs a
+    tick, the sources' share of the wall (the generators making their
+    batches on the host) and the dataflows' (their `step` calls), and the
+    kernel replays."""
+    from materialize_tpu_torch.ops.kernels import registry
+
+    def tick():
+        return coord.advance(n_rows) if n_rows is not None else coord.advance()
+
+    tick()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    registry.SAMPLES = {}
+    syncs0, rec0, df0 = host_syncs(), _source_records(coord), _dataflow_s(coord)
+    source_s = _timed_sources(coord)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(SQL_TIMED):
+        tick()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(registry.LAUNCHES)
+    samples, registry.SAMPLES = registry.SAMPLES, None
+    updates = _source_records(coord) - rec0
+    out = {"ticks": SQL_TIMED, "updates": updates, "seconds": elapsed,
+           "updates_per_s": updates / elapsed,
+           "host_syncs_per_tick": (host_syncs() - syncs0) / SQL_TIMED,
+           "source_share": source_s[0] / elapsed,
+           "dataflow_share": (_dataflow_s(coord) - df0) / elapsed, "launches": launches}
+    phase(f"{what}: {updates} updates in {elapsed:.4f}s over {SQL_TIMED} advance() ticks = "
+          f"{out['updates_per_s']:.1f} updates/s; {out['host_syncs_per_tick']} host syncs per "
+          f"tick; of the wall, the sources' batch making {out['source_share']:.1%} and the "
+          f"dataflows' steps {out['dataflow_share']:.1%}; "
+          f"launches {launches}")
+    out["kernels"] = sql_kernel_rows(samples, launches, what)
+    return out
+
+
+def run_sql_q3(device, sf: float = 1.0) -> dict:
+    """Phase 12a: TPC-H Q3 as SQL text at SF1 through Coordinator.execute:
+    the source, the view (hydrated from the storage snapshots, rendered by
+    render_dataflow with the shared arrangements), a warm-up and the timed
+    advance() ticks (the coordinator's RF1/RF2 refresh at frac 0.001), then
+    the profiled ticks and the oracle check (closures)."""
+    from materialize_tpu_torch.adapter import Coordinator
+    from materialize_tpu_torch.models.tpch import q3_oracle
+
+    coord = Coordinator(device=device)
+    t0 = time.perf_counter()
+    coord.execute(f"CREATE SOURCE tp FROM LOAD GENERATOR TPCH (SCALE FACTOR {sf})")
+    torch.cuda.synchronize()
+    source_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coord.execute(SQL_Q3)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    df = coord.dataflows[-1][1]
+    phase(f"sql q3: source in {source_s:.2f}s, view hydrated in {view_s:.2f}s by "
+          f"{type(df).__name__}; sharing {coord.trace_manager.sharing_rows()}")
+    out = {"sf": sf, "frac": 0.001, "source_s": source_s, "view_s": view_s,
+           "renderer": type(df).__name__, **timed_advances(coord, "sql q3")}
+
+    def profiled() -> dict:
+        def run():
+            for _ in range(PROFILED_TICKS):
+                coord.advance()
+        return {"profile": profile_host_ticks(run)}
+
+    def check() -> dict:
+        gen = next(g for g, gids in coord.generators if "lineitem" in gids)
+        want = q3_oracle(gen._customer_cols(), tuple(gen._orders_store),
+                         tuple(gen._lineitem_store),
+                         building_code=coord.catalog.dict.lookup("BUILDING"))
+        want = {k: v for k, v in want.items() if v != 0}
+        rows = coord.execute("SELECT * FROM q3").rows
+        got = {(lk, od, sp): round(rev * 10_000) for lk, rev, od, sp in rows}
+        if got != want:
+            raise AssertionError(f"SQL q3 differs from q3_oracle: {len(got)} vs "
+                                 f"{len(want)} groups")
+        return {"groups": len(got)}
+
+    out["profiled_ticks"], out["check"] = profiled, check
+    return out
+
+
+def run_sql_auction(device) -> dict:
+    """Phase 12b: the README's auction source and views through SQL: 64
+    advance(n_rows=65536) ticks before any view (2^22 bids), the three
+    views hydrated from snapshots (two share the auctions and bids
+    arrangements), a warm-up and the timed ticks, then the profiled ticks
+    and the checks against NumPy oracles over the generator's rows
+    (closures)."""
+    from materialize_tpu_torch.adapter import Coordinator
+
+    coord = Coordinator(device=device)
+    coord.execute("CREATE SOURCE auction_house FROM LOAD GENERATOR AUCTION")
+    gen = next(g for g, gids in coord.generators if "bids" in gids)
+    gen.host = {"auctions": [], "bids": []}  # keep every tick's rows for the oracles
+    t0 = time.perf_counter()
+    for _ in range(AUCTION_HYDRATE):
+        coord.advance(AUCTION_BIDS)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    view_s = {}
+    for name, sql in SQL_AUCTION_VIEWS.items():
+        t0 = time.perf_counter()
+        coord.execute(sql)
+        torch.cuda.synchronize()
+        view_s[name] = time.perf_counter() - t0
+    tm = coord.trace_manager
+    phase(f"sql auction: {AUCTION_HYDRATE} ticks ingested in {ingest_s:.2f}s; views hydrated "
+          f"in {view_s}; traces {tm.trace_count()}, import hit rate {tm.import_hit_rate()}, "
+          f"sharing {tm.sharing_rows()}")
+    if tm.stats["imports"] <= 0:
+        raise AssertionError("sql auction: no shared-trace import hit")
+    out = {"bids_per_tick": AUCTION_BIDS, "ingest_s": ingest_s, "view_s": view_s,
+           **timed_advances(coord, "sql auction", AUCTION_BIDS),
+           "trace_count": tm.trace_count(), "import_hit_rate": tm.import_hit_rate(),
+           "sharing_rows": tm.sharing_rows()}
+
+    def profiled() -> dict:
+        def run():
+            for _ in range(PROFILED_TICKS):
+                coord.advance(AUCTION_BIDS)
+        return {"profile": profile_host_ticks(run)}
+
+    def check() -> dict:
+        bids = [np.concatenate(c) for c in zip(*gen.host["bids"])]
+        auctions = [np.concatenate(c) for c in zip(*gen.host["auctions"])]
+        b_auction, b_buyer, b_amount = bids[2], bids[1], bids[3]
+        order = np.argsort(auctions[0], kind="stable")
+        a_ids, a_seller = auctions[0][order], auctions[1][order]
+        keys, inv = np.unique(b_auction, return_inverse=True)
+        total = np.bincount(inv, weights=b_amount.astype(np.float64)).astype(np.int64)
+        count = np.bincount(inv)
+        top = np.full(len(keys), np.iinfo(np.int64).min)
+        np.maximum.at(top, inv, b_amount)
+        live = np.isin(keys, a_ids)
+        want = {
+            "totals": sorted(zip(keys.tolist(), total.tolist(), count.tolist())),
+            "max_bid": sorted(zip(keys[live].tolist(), top[live].tolist())),
+        }
+        got = {name: sorted(coord.execute(f"SELECT * FROM {name}").rows)
+               for name in ("totals", "max_bid")}
+        for name in want:
+            if got[name] != want[name]:
+                raise AssertionError(f"sql auction: {name} differs from its oracle")
+        # the join's 2^22-row view, read on the card: its index against the
+        # oracle's columns (auction, seller, buyer, amount), sorted
+        jdf = next(df for gid, df, _s in coord.dataflows
+                   if gid == coord.catalog.get("auction_bids").global_id)
+        h = next(iter(jdf.index_traces.values())).merged().to_host()
+        got_j = np.stack([np.asarray(c) for c in h["vals"]], 1)
+        got_j = np.repeat(got_j, h["diffs"], axis=0)
+        m = np.isin(b_auction, a_ids)
+        seller = a_seller[np.searchsorted(a_ids, b_auction[m])]
+        want_j = np.stack([b_auction[m], seller, b_buyer[m], b_amount[m]], 1)
+        got_j = got_j[np.lexsort(got_j.T[::-1])]
+        want_j = want_j[np.lexsort(want_j.T[::-1])]
+        if got_j.shape != want_j.shape or not np.array_equal(got_j, want_j):
+            raise AssertionError(f"sql auction: auction_bids differs from its oracle "
+                                 f"({got_j.shape} vs {want_j.shape})")
+        top5 = coord.execute("SELECT * FROM totals ORDER BY total DESC LIMIT 5").rows
+        want5 = sorted(want["totals"], key=lambda r: -r[1])[:5]
+        if [r[1] for r in top5] != [r[1] for r in want5]:
+            raise AssertionError(f"sql auction: top 5 totals {top5} vs {want5}")
+        return {"totals": len(got["totals"]), "max_bid": len(got["max_bid"]),
+                "auction_bids": int(got_j.shape[0]), "top5": top5}
+
+    out["profiled_ticks"], out["check"] = profiled, check
+    return out
 
 
 def main() -> int:
@@ -1750,6 +2089,8 @@ def main() -> int:
     nodes = run_node_cases(device)
     phase(f"node cases: every node kind on the card equals the CPU run byte for byte: "
           f"{json.dumps(nodes)}")
+    sq3 = run_sql_q3(device)
+    sau = run_sql_auction(device)
 
     # every CUDA-event timing is done: now the profiler (the short sessions
     # first: after the ticks' long ones, short ones lost events), and the views
@@ -1787,7 +2128,8 @@ def main() -> int:
         au["view"] = au.pop("check")()
         phase(f"auction {config}: view equals its oracle ({au['view']}); profile "
               f"{json.dumps(au['profile'])}")
-    for label, host in (("q3 host", q3h), ("auction host", auh)):
+    for label, host in (("q3 host", q3h), ("auction host", auh), ("sql q3", sq3),
+                        ("sql auction", sau)):
         host.update(host.pop("profiled_ticks")())
         host["view"] = host.pop("check")()
         phase(f"{label}: views equal their oracles ({host['view']}); profile "
@@ -1800,6 +2142,8 @@ def main() -> int:
         row["q3_host"] = q3h["kernels"].get(row["name"], {"launches": 0})
         row["auction_host"] = auh["kernels"].get(row["name"], {"launches": 0})
         row["node_cases_launches"] = nodes["launches"][row["name"]]
+        row["sql_q3"] = sq3["kernels"].get(row["name"], {"launches": 0})
+        row["sql_auction"] = sau["kernels"].get(row["name"], {"launches": 0})
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],
@@ -1824,6 +2168,8 @@ def main() -> int:
     print(json.dumps({"q3_host": q3h}))
     print(json.dumps({"auction_host": auh}))
     print(json.dumps({"node_cases": nodes}))
+    print(json.dumps({"sql_q3": sq3}))
+    print(json.dumps({"sql_auction": sau}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

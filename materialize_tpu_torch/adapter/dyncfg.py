@@ -1,0 +1,402 @@
+"""dyncfg — dynamically updatable typed configuration.
+
+Counterpart of materialize_tpu/adapter/dyncfg.py: host Python, kept as a copy in the
+port (which never imports the JAX package) and held to the same
+behaviour by the port's tests.
+
+The analogue of the reference's `mz-dyncfg` (src/dyncfg/src/lib.rs:9-30):
+typed `Config` constants registered into a `ConfigSet`, updatable at runtime
+(`ALTER SYSTEM SET …`), consulted by the optimizer and renderer, and shipped
+to cluster replicas in CreateInstance / UpdateConfiguration (the
+ComputeCommand::UpdateConfiguration path, protocol/command.rs:93).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+
+@dataclass(frozen=True)
+class Config:
+    name: str
+    default: Any
+    description: str = ""
+
+    @property
+    def typ(self) -> type:
+        return type(self.default)
+
+
+class ConfigSet:
+    def __init__(self, configs: list[Config]):
+        self._configs = {c.name: c for c in configs}
+        self._values: dict[str, Any] = {}
+
+    def get(self, name: str):
+        c = self._configs.get(name)
+        if c is None:
+            raise KeyError(f"unknown configuration parameter: {name}")
+        return self._values.get(name, c.default)
+
+    def set(self, name: str, value) -> None:
+        c = self._configs.get(name)
+        if c is None:
+            raise KeyError(f"unknown configuration parameter: {name}")
+        if c.typ is bool:
+            if isinstance(value, str):
+                value = value.lower() in ("true", "on", "1", "yes")
+            value = bool(value)
+        elif c.typ is int:
+            value = int(value)
+        elif c.typ is float:
+            value = float(value)
+        else:
+            value = str(value)
+        self._values[name] = value
+
+    def reset(self, name: str) -> None:
+        self._values.pop(name, None)
+
+    def snapshot(self) -> dict:
+        return {name: self.get(name) for name in self._configs}
+
+    def names(self) -> list[str]:
+        return sorted(self._configs)
+
+
+# engine configs (the compute-dyncfgs analogue, src/compute-types/src/dyncfgs.rs)
+ENABLE_DELTA_JOIN = Config(
+    "enable_delta_join",
+    True,
+    "plan 3+-way joins as delta joins (one update path per input); "
+    "off = linear binary chains (the ENABLE_MZ_JOIN_CORE-style rendering flag)",
+)
+DELTA_JOIN_MAX_INPUTS = Config(
+    "delta_join_max_inputs",
+    6,
+    "joins wider than this always chain linearly",
+)
+LSM_MERGE_RATIO = Config(
+    "lsm_merge_ratio", 8, "geometric ratio of arrangement LSM level merges"
+)
+INDEX_FAST_PATH = Config(
+    "enable_index_fast_path", True, "serve bare-Get peeks from maintained indexes"
+)
+INTROSPECTION = Config(
+    "enable_introspection", True, "expose mz_* introspection relations"
+)
+COMPACTION_WINDOW = Config(
+    "compaction_window", 32,
+    "ticks of history retained before arrangements/storage compact "
+    "(read holds from active subscriptions are respected; the AllowCompaction"
+    "/read_policy analogue)"
+)
+MEMORY_LIMIT_MB = Config(
+    "memory_limit_mb", 0, "refuse writes when process RSS exceeds this "
+    "(0 = off; the memory_limiter.rs watchdog analogue)"
+)
+LOG_FILTER = Config(
+    "log_filter", "off", "tracing emission level: off | info | debug "
+    "(the ALTER SYSTEM SET log_filter analogue, doc/developer/tracing.md)"
+)
+ARRANGEMENT_SHARING = Config(
+    "enable_arrangement_sharing",
+    True,
+    "share one arrangement per (collection, key columns) across every "
+    "dataflow that reads it (arrangement/trace_manager.py: import handles + "
+    "reader-held since holds) instead of arranging per-MV; force-disable "
+    "for bisection — affects dataflows rendered AFTER the change",
+)
+FUSED_JOIN_CAP_RATIO = Config(
+    "fused_join_cap_ratio",
+    4,
+    "geometric taper of per-LSM-level join output caps in the fused "
+    "renderer: level i gets join_out/ratio^(levels-1-i) slots (floored at "
+    "the probe width) instead of a uniform join_out per level — shrinks the "
+    "concat the canonicalizing sort runs over in big-tick regimes "
+    "(1 = uniform, the pre-PR-9 behavior); overflow-retry keeps any "
+    "setting lossless",
+)
+FUSED_RENDER = Config(
+    "enable_fused_render",
+    False,
+    "render installed materialized views as ONE jitted XLA program per tick "
+    "(dataflow/fused.py) instead of host-orchestrated operators; plans the "
+    "fused compiler can't express fall back automatically (the "
+    "ENABLE_MZ_JOIN_CORE-style rendering toggle for the fused path)",
+)
+
+MV_SINK_SELF_CORRECT = Config(
+    "mv_sink_self_correct_interval",
+    16,
+    "every N write ticks, diff each materialized view's desired output (its "
+    "index trace) against the persisted collection and append the "
+    "correction (0 = off, 1 = every tick) — bounds the blast radius of any "
+    "bug that corrupts a derived collection at O(view) cost per check (the "
+    "reference's self-correcting persist_sink maintains this diff "
+    "incrementally, src/compute/src/sink/materialized_view.rs:9-37; here "
+    "the full diff is amortized over the interval)",
+)
+
+CTP_MAX_FRAME_BYTES = Config(
+    "ctp_max_frame_bytes",
+    1 << 30,
+    "reject CTP frames whose wire length header exceeds this many bytes "
+    "(a corrupt/desynced stream would otherwise loop allocating gigabytes; "
+    "shipped to clusterd in CreateInstance.config)",
+)
+MESH_EXCHANGE_TIMEOUT = Config(
+    "mesh_exchange_timeout_s",
+    300.0,
+    "per-tick deadline on sharded-mesh exchanges: a collect stalled past "
+    "this many seconds raises MeshError and drives an epoch-bumped reform "
+    "instead of hanging the shard's command loop",
+)
+
+# -- overload protection (the serving path's graceful-degradation knobs) -----
+STATEMENT_TIMEOUT = Config(
+    "statement_timeout",
+    0,
+    "milliseconds a statement may run before cooperative cancellation fires "
+    "with SQLSTATE 57014 (0 = off; checked between operator dispatches in "
+    "the tick loop and at coordinator checkpoints — the pg statement_timeout "
+    "session var)",
+)
+IDLE_SESSION_TIMEOUT = Config(
+    "idle_in_transaction_session_timeout",
+    0,
+    "milliseconds a pgwire connection may sit idle between statements before "
+    "it is terminated with SQLSTATE 57P05 (0 = off; every statement here is "
+    "an implicit single-statement transaction, so this acts as an idle-"
+    "session timeout)",
+)
+MAX_RESULT_SIZE = Config(
+    "max_result_size",
+    128 << 20,
+    "bytes a single result set may occupy before the peek aborts with "
+    "SQLSTATE 53400 — enforced DURING materialization (count expansion and "
+    "row decode stop at the budget), so an oversized result is rejected "
+    "without ever being fully built (0 = off)",
+)
+MAX_CONNECTIONS = Config(
+    "max_connections",
+    256,
+    "pgwire connections accepted concurrently; the overflow connection gets "
+    "an immediate, retryable 53300 ErrorResponse and is closed (0 = off)",
+)
+COORD_QUEUE_DEPTH = Config(
+    "coord_queue_depth",
+    64,
+    "statements allowed in the coordinator's waiting line (queued + "
+    "executing) across all frontends; the overflow statement is shed with a "
+    "retryable 53300 instead of queuing unboundedly (0 = off)",
+)
+PEEK_QUEUE_DEPTH = Config(
+    "peek_queue_depth",
+    32,
+    "SELECT/SHOW/EXPLAIN statements allowed in the peek admission line "
+    "(tighter than coord_queue_depth so a read swarm can't starve writes); "
+    "overflow sheds with 53300 (0 = off)",
+)
+SUBSCRIBE_QUEUE_DEPTH = Config(
+    "subscribe_queue_depth",
+    4096,
+    "updates a SUBSCRIBE's egress queue may buffer before the slow client "
+    "is shed with 53400 (SubscriptionOverflow) and the subscription torn "
+    "down — bounds how much history one stalled reader can pin (0 = off)",
+)
+MAX_SUBSCRIPTIONS_PER_USER = Config(
+    "max_subscriptions_per_user",
+    0,
+    "live SUBSCRIBEs one user may hold concurrently; the overflow SUBSCRIBE "
+    "is refused at admission with a retryable 53300 so one tenant cannot "
+    "exhaust the fan-out ring's cursor table (0 = off); the user is the "
+    "pgwire startup-packet user / the HTTP request's user field",
+)
+FANOUT_RING_TICKS = Config(
+    "fanout_ring_ticks",
+    4096,
+    "frame entries (collection ticks) the shared egress fan-out ring retains "
+    "for lagging cursors; a subscriber that falls off the window is shed "
+    "with 53400 exactly like a queue overflow — this caps pinned history "
+    "per collection instead of per subscriber (0 = trim only to the "
+    "slowest live cursor)",
+)
+SINK_COMMIT_ORDER = Config(
+    "sink_commit_order",
+    "emit-first",
+    "durable ordering of a FILE sink's per-tick (file append, progress CAS) "
+    "pair: emit-first appends the frame then commits progress (crash between "
+    "the two truncates the orphan tail on resume); commit-first commits then "
+    "appends (crash re-derives the missing frame from the source shard) — "
+    "both orderings are exactly-once, both are swept by the crash matrix",
+)
+SOURCE_INGEST_BUDGET = Config(
+    "source_ingest_budget_bytes",
+    8 << 20,
+    "byte budget one `advance()` tick may ingest across all sources "
+    "(generators + file tails); a source with more data YIELDS the remainder "
+    "to later ticks instead of growing the tick without bound — counted in "
+    "mz_overload_counters.ingest_yields (0 = off)",
+)
+
+# -- observability (obs/: operator logging, introspection, profiling) --------
+ENABLE_OPERATOR_LOGGING = Config(
+    "enable_operator_logging",
+    False,
+    "accumulate per-operator row counts (rows in/out) alongside the always-on "
+    "elapsed/invocation counters, feeding mz_dataflow_operator_rates; off (the "
+    "default) adds no per-row work on the tick path — the zero-overhead-when-"
+    "off guarantee the overhead-guard benchmark enforces",
+)
+INTROSPECTION_INTERVAL = Config(
+    "introspection_interval_s",
+    1.0,
+    "seconds a merged replica stats snapshot (FetchStats over CTP) stays "
+    "cached before an introspection peek or /metrics scrape refreshes it; "
+    "0 = fetch on every read",
+)
+ENABLE_JAX_PROFILER = Config(
+    "enable_jax_profiler",
+    False,
+    "start a jax.profiler trace (into jax_profiler_dir) and annotate each "
+    "fused tick with its dataflow name so device time attributes to plan "
+    "nodes (obs/profiler.py); shipped to clusterd in CreateInstance.config",
+)
+JAX_PROFILER_DIR = Config(
+    "jax_profiler_dir",
+    "",
+    "dump directory for jax.profiler traces (empty = annotation-only, no "
+    "trace collection)",
+)
+
+# -- kernel backend (ops/kernels/: Pallas vs XLA hot-path kernels) -----------
+KERNEL_BACKEND = Config(
+    "kernel_backend",
+    "auto",
+    "which implementation the registered hot-path kernels (run_sum, "
+    "multi_take, probe, probe2; ops/kernels/) dispatch to: 'auto' picks "
+    "pallas on TPU and xla elsewhere, 'xla'/'pallas' force a backend on any "
+    "platform (pallas off-TPU runs in interpret mode — correct but slow, for "
+    "differential testing); takes effect at the next tick render, no restart",
+)
+
+# -- frontend backend (serve/: reactor vs thread-per-connection serving) -----
+FRONTEND_BACKEND = Config(
+    "frontend_backend",
+    "auto",
+    "which serving plane hosts the pgwire/HTTP frontends: 'reactor' runs a "
+    "single-threaded readiness-driven event loop (serve/reactor.py: "
+    "nonblocking sockets, per-connection state machines, shared-frame "
+    "SUBSCRIBE fan-out pumped straight from the egress ring), 'thread' "
+    "forces the historical thread-per-connection accept loops for "
+    "bisection, 'auto' picks the reactor; consulted at listener start "
+    "(serve_pgwire / http serve), not per connection — wire bytes are "
+    "identical either way (differential-tested in tests/test_serve.py)",
+)
+REACTOR_EXECUTOR_THREADS = Config(
+    "reactor_executor_threads",
+    8,
+    "worker threads the serve/ reactor hands blocking work to (statement "
+    "execution behind the admission gates, subscription teardown): the "
+    "event loop itself never blocks on the coordinator lock, so a stalled "
+    "command can delay command REPLIES but never readiness handling",
+)
+
+# -- exchange backend (parallel/devicemesh/: on-chip vs host shard exchange) -
+EXCHANGE_BACKEND = Config(
+    "exchange_backend",
+    "auto",
+    "which exchange plane carries the per-operator shard shuffle: 'device' "
+    "renders over a local device mesh with on-chip all_to_all "
+    "(parallel/devicemesh/, requires the fused tick), 'host' force-disables "
+    "the device plane (single-device fused or the host WorkerMesh across "
+    "processes), 'auto' trusts an explicitly provided mesh and otherwise "
+    "forms one only on a real multi-device accelerator; takes effect at the "
+    "next dataflow render, no restart; shipped to clusterd in "
+    "CreateInstance.config (doc/DEVICE_MESH.md decision table)",
+)
+
+ALL_CONFIGS = [
+    MV_SINK_SELF_CORRECT,
+    CTP_MAX_FRAME_BYTES,
+    MESH_EXCHANGE_TIMEOUT,
+    STATEMENT_TIMEOUT,
+    IDLE_SESSION_TIMEOUT,
+    MAX_RESULT_SIZE,
+    MAX_CONNECTIONS,
+    COORD_QUEUE_DEPTH,
+    PEEK_QUEUE_DEPTH,
+    SUBSCRIBE_QUEUE_DEPTH,
+    MAX_SUBSCRIPTIONS_PER_USER,
+    FANOUT_RING_TICKS,
+    FRONTEND_BACKEND,
+    REACTOR_EXECUTOR_THREADS,
+    SINK_COMMIT_ORDER,
+    SOURCE_INGEST_BUDGET,
+    ENABLE_DELTA_JOIN,
+    DELTA_JOIN_MAX_INPUTS,
+    LSM_MERGE_RATIO,
+    ARRANGEMENT_SHARING,
+    FUSED_JOIN_CAP_RATIO,
+    INDEX_FAST_PATH,
+    INTROSPECTION,
+    LOG_FILTER,
+    MEMORY_LIMIT_MB,
+    COMPACTION_WINDOW,
+    FUSED_RENDER,
+    ENABLE_OPERATOR_LOGGING,
+    INTROSPECTION_INTERVAL,
+    ENABLE_JAX_PROFILER,
+    JAX_PROFILER_DIR,
+    KERNEL_BACKEND,
+    EXCHANGE_BACKEND,
+]
+
+
+def default_configs() -> ConfigSet:
+    return ConfigSet(ALL_CONFIGS)
+
+
+class SessionConfigs:
+    """Per-session overlay over the system ConfigSet (the reference's session
+    vars vs system vars split, src/sql/src/session/vars): SET writes here,
+    ALTER SYSTEM writes the underlying set; reads check the overlay first.
+
+    Also the session's cancellation token: `cancelled` is set by a pgwire
+    CancelRequest bearing the connection's secret key and checked at the
+    coordinator/tick-loop checkpoints — setting an Event is lock-free, so a
+    cancel never queues behind the very statement it is trying to stop."""
+
+    def __init__(self, system: ConfigSet):
+        import threading
+
+        self.system = system
+        self.overrides: dict = {}
+        self.cancelled = threading.Event()
+        # authenticated identity (pgwire startup packet's `user` parameter /
+        # the HTTP request's user field): per-tenant admission budgets
+        # (max_subscriptions_per_user) charge against this name
+        self.user = "anonymous"
+        # query-receipt timestamp stamped by the protocol layer: the
+        # statement_timeout window opens HERE, so admission-queue wait
+        # counts against the budget (consumed by Coordinator.execute_stmt)
+        self.arrival: float | None = None
+
+    def get(self, name: str):
+        if name in self.overrides:
+            return self.overrides[name]
+        return self.system.get(name)
+
+    def set(self, name: str, value) -> None:
+        # validate via a scratch set() against the system registry
+        probe = ConfigSet(list(self.system._configs.values()))
+        probe.set(name, value)
+        self.overrides[name] = probe.get(name)
+
+    def reset(self, name: str) -> None:
+        self.overrides.pop(name, None)
+
+    def names(self):
+        return self.system.names()

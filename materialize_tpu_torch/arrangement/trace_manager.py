@@ -1,0 +1,510 @@
+"""TraceManager: cross-dataflow arrangement sharing with reader-held compaction.
+
+Counterpart of materialize_tpu/arrangement/trace_manager.py; the shared
+batches and accumulators are port tensors on the readers' device, and every
+count the protocol reads goes through `ops.reduce.host_int`. The host-side
+analogue of the reference's shared arrangements (differential's
+`Trace`/`TraceAgent` import machinery, src/compute/src/render/context.rs and
+compute_state's `TraceManager`): N dataflows reading the same collection share
+ONE arrangement per `(collection id, key columns)` instead of each building a
+private index, so installing K materialized views over the same joined
+sources costs ~O(sources) arrangement maintenance per tick instead of
+O(K × sources).
+
+Protocol, in three parts:
+
+* **Export/import.** The first dataflow to render a stateful operator over an
+  imported collection creates ("exports") the `SharedTrace`; later dataflows
+  — including ephemeral peek dataflows — import a handle. Imports never
+  re-insert: the trace takes **one** LSM insert per tick total, offered by
+  whichever reader steps the tick first (`offer` is idempotent per tick, and
+  every reader of a collection receives the identical delta, so first-wins is
+  deterministic).
+
+* **Tick discipline.** A tick's delta is staged in `delta` and only merged
+  into the spine when the NEXT tick's offer seals it. That gives readers both
+  time-consistent views without per-row time filtering:
+  `batches_thru(t)` (contents including tick t) and `batches_before(t)`
+  (contents strictly before t) — exactly the two views the differential
+  update rule dA⋈B(t) + dB⋈A(t-1) and the delta-join sequential
+  decomposition (inputs j<k at t, j>k at t-1) need. Readers must therefore
+  step tick-aligned: no dataflow may advance past tick t before every other
+  reader of a shared trace has stepped t (the coordinator's group commit and
+  clusterd's ProcessTo both drive ticks aligned).
+
+* **Reader-held compaction.** Every importing dataflow registers a `since`
+  hold (spine.py `Arrangement.holds`); `allow_compaction` only advances a
+  shared trace to the minimum over live holds. Dropping an MV (or a peek
+  dataflow expiring) releases its hold so compaction re-arms — and a trace
+  whose LAST hold is released is deleted outright, because a trace nobody
+  steps would silently go stale (offers come from reader nodes).
+
+Sharing is keyed on ids in `DataflowDescription.source_imports` only: those
+are coordinator-global collection ids (tables/sources/MV storage), stable
+across dataflows. Built-object ids are dataflow-private and never shared.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..repr.batch import UpdateBatch
+from .spine import Arrangement, arrange_batch
+
+
+class SharedTrace:
+    """One shared arrangement of collection `gid` keyed by `key_cols`."""
+
+    def __init__(self, gid: str, key_cols: tuple[int, ...], exporter: str, device="cuda"):
+        self.gid = gid
+        self.key_cols = tuple(key_cols)
+        self.exporter = exporter
+        self.arr = Arrangement(key_cols=self.key_cols, device=device)
+        # tick `frontier`'s keyed delta, staged until the next tick seals it
+        self.delta: Optional[UpdateBatch] = None
+        self.frontier = -1
+
+    # -- maintenance --------------------------------------------------------
+    def offer(self, tick: int, keyed: Optional[UpdateBatch]) -> None:
+        """Apply tick `tick`'s keyed delta (idempotent: the first reader to
+        step the tick wins; every reader offers the identical batch). `None`
+        still seals the previous tick's delta and advances the frontier."""
+        if tick <= self.frontier:
+            return
+        self._seal()
+        self.frontier = tick
+        self.delta = keyed
+
+    def _seal(self) -> None:
+        if self.delta is not None:
+            self.arr.insert(self.delta, already_keyed=True)
+            self.delta = None
+
+    # -- reads --------------------------------------------------------------
+    def batches_thru(self, tick: int) -> list:
+        """Contents through `tick` (includes a delta offered at `tick`)."""
+        if self.delta is not None:
+            return self.arr.batches + [self.delta]
+        return self.arr.batches
+
+    def batches_before(self, tick: int) -> list:
+        """Contents strictly before `tick` (a delta offered AT `tick` is
+        excluded; an older staged delta is part of the pre-tick contents)."""
+        if self.delta is not None and self.frontier < tick:
+            return self.arr.batches + [self.delta]
+        return self.arr.batches
+
+    # -- hold bookkeeping (delegated to the spine's ledger) ------------------
+    @property
+    def since(self) -> int:
+        return self.arr.since
+
+    @property
+    def holds(self) -> dict:
+        return self.arr.holds
+
+    def readable_at(self, as_of: int) -> bool:
+        """A read at `as_of` is definite iff the trace has not compacted
+        past it (the since ≤ as_of half of the peek invariant)."""
+        return self.arr.since <= as_of
+
+    def state_info(self) -> tuple:
+        """(batches, capacity, records) including the staged delta."""
+        nb = len(self.arr.batches) + (1 if self.delta is not None else 0)
+        cap = self.arr.total_cap() + (self.delta.cap if self.delta is not None else 0)
+        rec = self.arr.count() + (
+            int(self.delta.count()) if self.delta is not None else 0
+        )
+        return nb, cap, rec
+
+
+class SharedReduceTrace:
+    """Shared per-key aggregate state for identical Reduce operators.
+
+    The reduce analogue of a SharedTrace: the accumulator table steps ONCE
+    per tick (first reader wins; all readers feed the identical input delta)
+    and the per-tick output/error deltas are memoized so every reader's
+    downstream sees the same emission. `out_arr`/`err_arr` mirror the
+    cumulative output collection so a later dataflow can hydrate by snapshot
+    instead of re-aggregating its input snapshot.
+    """
+
+    def __init__(self, gid: str, key_cols, aggs, in_dtypes, exporter: str, device="cuda"):
+        from ..expr.scalar import torch_dtype
+        from ..ops.reduce import AccumState
+
+        self.gid = gid
+        self.key_cols = tuple(key_cols)
+        self.aggs = tuple(aggs)
+        self.exporter = exporter
+        key_dtypes = tuple(torch_dtype(in_dtypes[i]) for i in self.key_cols)
+        accum_dtypes = tuple(torch_dtype(a.accum_dtype) for a in self.aggs)
+        self.state = AccumState.empty(8, key_dtypes, accum_dtypes, device)
+        self.out_arr = Arrangement(key_cols=(), device=device)
+        self.err_arr = Arrangement(key_cols=(), device=device)
+        self.frontier = -1
+        self.cached: tuple = (None, None)  # (out, errs) at `frontier`
+
+    def step(self, tick: int, oks: UpdateBatch):
+        """Advance the shared state to `tick` (first reader computes; the
+        rest replay the cached emission). Returns (out, errs)."""
+        if tick <= self.frontier:
+            return self.cached
+        from ..ops.reduce import accumulable_step, host_int
+        from ..repr.batch import bucket_cap
+
+        self.state, out, errs = accumulable_step(
+            self.state, oks, self.key_cols, self.aggs, tick
+        )
+        n = host_int(self.state.count())
+        if bucket_cap(n) < self.state.cap:
+            self.state = self.state.with_capacity(bucket_cap(n))
+        if out is not None:
+            self.out_arr.insert(out)
+        if errs is not None:
+            self.err_arr.insert(errs)
+        self.frontier = tick
+        self.cached = (out, errs)
+        return self.cached
+
+    def snapshot(self, at: int):
+        """Cumulative (out, errs) contents through `at`, times advanced to
+        `at` — the hydration delta for an importing dataflow."""
+        from ..ops.consolidate import advance_times, consolidate
+        from ..ops.reduce import host_int
+
+        def snap(arr: Arrangement):
+            if not arr.batches:
+                return None
+            b = consolidate(advance_times(arr.merged(), at))
+            return b if host_int(b.count()) > 0 else None
+
+        return snap(self.out_arr), snap(self.err_arr)
+
+    # hold bookkeeping rides the output arrangement's ledger
+    @property
+    def arr(self) -> Arrangement:
+        return self.out_arr
+
+    @property
+    def since(self) -> int:
+        return self.out_arr.since
+
+    @property
+    def holds(self) -> dict:
+        return self.out_arr.holds
+
+    def readable_at(self, as_of: int) -> bool:
+        return self.out_arr.since <= as_of
+
+    def state_info(self) -> tuple:
+        nb = 1 + len(self.out_arr.batches)
+        cap = self.state.cap + self.out_arr.total_cap()
+        rec = int(self.state.count()) + self.out_arr.count()
+        return nb, cap, rec
+
+
+class TraceHandle:
+    """One dataflow's view of a shared trace.
+
+    The handle encodes the import/export distinction the update rules need:
+    an IMPORTING dataflow's hydration tick feeds a full snapshot (the
+    telescoped delta from -∞), not a per-tick delta, so at `tick <= as_of`
+    the handle suppresses offers (the trace already holds the collection)
+    and reports the pre-tick state as empty (from the importing dataflow's
+    frame, nothing existed before its as_of). An exporting dataflow offers
+    from its first tick — its hydration snapshot is what seeds the trace.
+
+    `trusted` governs what the importer's hydration tick may READ. A trace
+    is only guaranteed to equal the collection at the importer's as_of on a
+    LIVE coordinator (group commit keeps every trace current through the
+    last write) — ephemeral peeks import there and read the trace at as_of,
+    which is their whole sharing win. An INSTALLED dataflow's render must
+    survive clusterd's reconciliation replay, where creates replay before
+    any re-stepping and a shared trace can be empty while the shard holds
+    history (reduce_command_history keeps only the last ProcessTo): with
+    trusted=False the hydration tick is PRIVATE — the handle stages the
+    offered hydration delta itself and serves it back for thru(), touching
+    the trace only from the first post-as_of tick, by which point the
+    exporter's own re-stepping has rebuilt it.
+    """
+
+    def __init__(self, trace, imported: bool, as_of: int, trusted: bool = False):
+        self.trace = trace
+        self.imported = imported
+        self.as_of = as_of
+        self.trusted = trusted
+        self._hyd = None  # untrusted hydration: the staged private delta
+
+    def _hydrating(self, tick: int) -> bool:
+        return self.imported and tick <= self.as_of
+
+    def offer(self, tick: int, keyed) -> None:
+        if not self._hydrating(tick):
+            self._hyd = None  # hydration is over; drop the staged snapshot
+            self.trace.offer(tick, keyed)
+        elif not self.trusted:
+            self._hyd = keyed
+
+    def thru(self, tick: int) -> list:
+        if self._hydrating(tick) and not self.trusted:
+            return [self._hyd] if self._hyd is not None else []
+        return self.trace.batches_thru(tick)
+
+    def before(self, tick: int) -> list:
+        if self._hydrating(tick):
+            return []
+        return self.trace.batches_before(tick)
+
+    def name(self) -> str:
+        t = self.trace
+        kind = "reduce" if isinstance(t, SharedReduceTrace) else "arrange"
+        role = "import" if self.imported else "export"
+        return f"shared:{t.gid}/{kind}:{role}"
+
+
+def reduce_signature(key_cols, aggs) -> str:
+    """Stable signature of a Reduce's aggregate computation: two reduces
+    share state only when key columns AND aggregates match exactly."""
+    return repr((tuple(key_cols), tuple(aggs)))
+
+
+class TraceManager:
+    """Per-(worker, shard) registry of shared traces.
+
+    One instance lives on the coordinator (the host data plane) and one per
+    worker of a sharded replica (shared traces hold that worker's partition;
+    FormMesh/reform rebuilds the managers — and therefore every hold — at the
+    bumped epoch via the controller's command-history replay).
+    """
+
+    def __init__(self, epoch: int = 0):
+        self.traces: dict[tuple, object] = {}  # (gid, kind, extra) -> trace
+        self.epoch = epoch
+        self.stats = {
+            "exports": 0,  # traces created (first reader = cold miss)
+            "imports": 0,  # import hits (a later reader reused a trace)
+            "peek_since_misses": 0,  # peek could not import (as_of < since)
+        }
+
+    # -- keys ---------------------------------------------------------------
+    @staticmethod
+    def arrangement_key(gid: str, key_cols: tuple[int, ...]) -> tuple:
+        return (gid, "arrange", tuple(key_cols))
+
+    @staticmethod
+    def reduce_key(gid: str, key_cols, aggs) -> tuple:
+        return (gid, "reduce", reduce_signature(key_cols, aggs))
+
+    # -- export / import ----------------------------------------------------
+    def _get(self, key: tuple, factory, reader: str, as_of: int, export: bool):
+        """The one import/export protocol: return (trace, imported) for
+        `key`, registering `reader`'s since hold at `as_of`. Creates +
+        exports via `factory()` when absent (unless export=False — ephemeral
+        peeks import only); returns (None, False) when no usable trace
+        exists or `as_of` predates the shared `since` (the read would be
+        partial)."""
+        tr = self.traces.get(key)
+        if tr is not None:
+            if not tr.readable_at(as_of):
+                self.stats["peek_since_misses"] += 1
+                return None, False
+            tr.arr.hold(reader, as_of)
+            self.stats["imports"] += 1
+            return tr, True
+        if not export:
+            return None, False
+        tr = factory()
+        tr.arr.hold(reader, as_of)
+        self.traces[key] = tr
+        self.stats["exports"] += 1
+        return tr, False
+
+    def get_arrangement(
+        self,
+        gid: str,
+        key_cols: tuple[int, ...],
+        reader: str,
+        as_of: int,
+        export: bool = True,
+        device="cuda",
+    ):
+        return self._get(
+            self.arrangement_key(gid, key_cols),
+            lambda: SharedTrace(gid, key_cols, exporter=reader, device=device),
+            reader,
+            as_of,
+            export,
+        )
+
+    def get_reduce(
+        self,
+        gid: str,
+        key_cols,
+        aggs,
+        in_dtypes,
+        reader: str,
+        as_of: int,
+        export: bool = True,
+        device="cuda",
+    ):
+        """SharedReduceTrace analogue of get_arrangement."""
+        return self._get(
+            self.reduce_key(gid, key_cols, aggs),
+            lambda: SharedReduceTrace(gid, key_cols, aggs, in_dtypes, exporter=reader,
+                                      device=device),
+            reader,
+            as_of,
+            export,
+        )
+
+    # -- lifecycle ----------------------------------------------------------
+    def downgrade(self, reader: str, since: int) -> None:
+        """Advance `reader`'s holds to `since` and let each affected trace
+        compact to its new minimum (AllowCompaction for shared traces)."""
+        for tr in self.traces.values():
+            if reader in tr.holds:
+                tr.arr.downgrade_hold(reader, since)
+                tr.arr.allow_compaction(since)
+
+    def release(self, reader: str) -> None:
+        """Drop every hold of `reader` (DROP of an MV, a peek expiring).
+        A trace with no remaining holds is deleted: with no reader stepping
+        it, its contents would silently go stale."""
+        dead = []
+        for key, tr in self.traces.items():
+            tr.arr.release_hold(reader)
+            if not tr.holds:
+                dead.append(key)
+        for key in dead:
+            del self.traces[key]
+
+    def rollback_install(self, reader: str) -> None:
+        """Undo a failed dataflow install: traces EXPORTED by `reader` are
+        removed outright (mid-install, nobody else can have imported them —
+        the coordinator is single-threaded per statement), and holds that
+        `reader` registered on pre-existing traces are popped WITHOUT the
+        DROP-path compaction re-arm (a pure undo never advances since), with
+        the stats counters unwound too. Leaves the manager exactly as before
+        the install began."""
+        for key in [k for k, t in self.traces.items() if t.exporter == reader]:
+            del self.traces[key]
+            self.stats["exports"] -= 1
+        dead = []
+        for key, tr in self.traces.items():
+            if tr.holds.pop(reader, None) is not None:
+                self.stats["imports"] -= 1
+            if not tr.holds:
+                dead.append(key)
+        for key in dead:
+            del self.traces[key]
+
+    # -- observability ------------------------------------------------------
+    def trace_count(self) -> int:
+        return len(self.traces)
+
+    def import_hit_rate(self) -> float:
+        tot = self.stats["imports"] + self.stats["exports"]
+        return (self.stats["imports"] / tot) if tot else 0.0
+
+    def sharing_rows(self) -> list[tuple]:
+        """mz_arrangement_sharing rows: (trace key, exporter, reader count,
+        min since hold, batches, capacity, records)."""
+        out = []
+        for (gid, kind, extra), tr in sorted(
+            self.traces.items(), key=lambda kv: repr(kv[0])
+        ):
+            nb, cap, rec = tr.state_info()
+            hold = min(tr.holds.values()) if tr.holds else -1
+            out.append(
+                (
+                    f"{gid}/{kind}[{extra}]",
+                    tr.exporter,
+                    len(tr.holds),
+                    hold,
+                    nb,
+                    cap,
+                    rec,
+                )
+            )
+        return out
+
+
+def shared_trace_keys(desc) -> list[tuple]:
+    """The trace keys a host render of `desc` would import/export — used by
+    the coordinator to decide whether a fused render must yield to the host
+    path (fused state is device-resident and cannot import host spines).
+
+    Mirrors the renderer's sharing sites: ArrangeBy over an imported Get,
+    linear-join stream/lookup sides that are imported Gets, delta-join
+    arrangements of imported Gets, and accumulable Reduce over an imported
+    Get."""
+    from ..dataflow import plan as lir
+
+    sources = set(desc.source_imports)
+    keys: list[tuple] = []
+
+    def is_src(e) -> bool:
+        return isinstance(e, lir.Get) and e.id in sources
+
+    def walk(e) -> None:
+        if isinstance(e, lir.ArrangeBy) and is_src(e.input):
+            keys.append(TraceManager.arrangement_key(e.input.id, e.key_cols))
+        if isinstance(e, lir.Join):
+            if isinstance(e.plan, lir.LinearJoinPlan):
+                if e.plan.stages and is_src(e.inputs[0]):
+                    keys.append(
+                        TraceManager.arrangement_key(
+                            e.inputs[0].id, e.plan.stages[0].stream_key
+                        )
+                    )
+                for si, st in enumerate(e.plan.stages):
+                    if is_src(e.inputs[si + 1]):
+                        keys.append(
+                            TraceManager.arrangement_key(
+                                e.inputs[si + 1].id, st.lookup_key
+                            )
+                        )
+            else:
+                for path in e.plan.paths:
+                    for st in path:
+                        if is_src(e.inputs[st.other_input]):
+                            keys.append(
+                                TraceManager.arrangement_key(
+                                    e.inputs[st.other_input].id, st.lookup_key
+                                )
+                            )
+        if isinstance(e, lir.Reduce) and not e.distinct and is_src(e.input):
+            keys.append(TraceManager.reduce_key(e.input.id, e.key_cols, e.aggs))
+        for child in _plan_children(e):
+            walk(child)
+
+    for bd in desc.objects_to_build:
+        walk(bd.plan)
+    return keys
+
+
+def _plan_children(e):
+    from ..dataflow import plan as lir
+
+    if isinstance(
+        e,
+        (
+            lir.Mfp,
+            lir.Negate,
+            lir.Threshold,
+            lir.ArrangeBy,
+            lir.TopK,
+            lir.BasicAgg,
+            lir.Reduce,
+            lir.TemporalFilter,
+            lir.FlatMap,
+            lir.Window,
+        ),
+    ):
+        return (e.input,)
+    if isinstance(e, (lir.Union, lir.Join)):
+        return tuple(e.inputs)
+    if isinstance(e, lir.LetRec):
+        return tuple(b[1] for b in e.bindings) + (e.body,)
+    return ()

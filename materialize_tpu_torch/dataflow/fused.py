@@ -569,9 +569,20 @@ class FusedDataflow:
         self,
         desc: lir.DataflowDescription,
         caps: Optional[FusedCaps] = None,
+        traces=None,
         operator_logging: bool = False,
         device="cuda",
     ):
+        # `traces`: the TraceManager, when arrangement sharing is on. Fused
+        # state cannot import a host spine, so a plan whose stateful
+        # operators would import an existing shared trace yields to the host
+        # renderer; with nothing to import the fused render stays private
+        # (it exports nothing).
+        if traces is not None:
+            from ..arrangement.trace_manager import shared_trace_keys
+
+            if any(k in traces.traces for k in shared_trace_keys(desc)):
+                raise FusedUnsupported("shared-trace import (host-resident spine)")
         self.desc = desc
         self.caps = caps or FusedCaps()
         self.device = torch.device(device)

@@ -12,10 +12,15 @@ means "no change", so quiet subgraphs do no device work. Operators size
 their outputs by reading counts from the device (`ops.reduce.host_int`,
 counted in `ops.reduce.HOST_SYNCS["host_path"]`).
 
-Not ported yet: the shared arrangements of `arrangement/trace_manager.py`
-(`traces=`, `SharedArrangeNode`, `SharedReduceNode`) and the sharded
-replica's exchange (`shard=`, `ShardContext`, `ExchangeNode`, over
-`parallel/netexchange.py` and `cluster/mesh.py`); asking for either raises.
+With `traces=` (an `arrangement.trace_manager.TraceManager`), stateful
+operators over imported collections share one arrangement (or one
+accumulable reduce) per collection and key across dataflows:
+`SharedArrangeNode`, `SharedReduceNode` and the shared sides of the join
+nodes read the trace through a `TraceHandle`.
+
+Not ported yet: the sharded replica's exchange (`shard=`, `ShardContext`,
+`ExchangeNode`, over `parallel/netexchange.py` and `cluster/mesh.py`);
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -182,33 +187,79 @@ class ArrangeByNode(Node):
         return [("arrange_by", len(self.arr.batches), self.arr.total_cap(), self.arr.count())]
 
 
-class LinearJoinNode(Node):
-    """Binary join chain; each stage keeps arrangements of both sides."""
+def _shared_state_info(h) -> tuple:
+    """(batches, cap, records) to report for a shared trace handle: the
+    exporter owns the memory; importers report zero cap and records, so a
+    sum over dataflows counts every shared trace once."""
+    nb, cap, rec = h.trace.state_info()
+    if h.imported:
+        return nb, 0, 0
+    return nb, cap, rec
 
-    def __init__(self, jplan: lir.LinearJoinPlan, closure, device):
+
+class SharedArrangeNode(Node):
+    """ArrangeBy over a shared trace: pass the delta through, offering it to
+    the trace (one insert a tick across every reader) instead of keeping a
+    private spine."""
+
+    def __init__(self, handle, key_cols: tuple):
+        self.h = handle
+        self.key_cols = key_cols
+
+    def step(self, tick, ins):
+        d = ins[0]
+        if d is None:
+            return None
+        oks, errs = d
+        if oks is not None:
+            self.h.offer(tick, arrange_batch(oks, self.key_cols))
+        return oks, errs
+
+    def state_info(self):
+        return [(self.h.name(),) + _shared_state_info(self.h)]
+
+
+class LinearJoinNode(Node):
+    """Binary join chain; each stage keeps arrangements of both sides.
+
+    `shared` (one (stream handle, lookup handle) pair per stage, None where
+    private) swaps a side's private arrangement for a shared trace: the
+    tick's delta is offered first (so `thru(t)` includes it), dA joins the
+    other side through t, dB joins this side before t, and the dA x dB term
+    is emitted only when the right side is private. Only stage 0's stream,
+    an imported collection, can be shared."""
+
+    def __init__(self, jplan: lir.LinearJoinPlan, closure, device, shared=None):
         self.stages = jplan.stages
         self.closure = closure
+        self.shared = shared or [(None, None) for _ in self.stages]
         self.state = [
-            (Arrangement(key_cols=s.stream_key, device=device),
-             Arrangement(key_cols=s.lookup_key, device=device))
-            for s in self.stages
+            (None if lh is not None else Arrangement(key_cols=s.stream_key, device=device),
+             None if rh is not None else Arrangement(key_cols=s.lookup_key, device=device))
+            for s, (lh, rh) in zip(self.stages, self.shared)
         ]
 
-    def _binary(self, stage_i: int, dl, dr):
+    def _binary(self, stage_i: int, dl, dr, tick: int):
         stage = self.stages[stage_i]
         left_arr, right_arr = self.state[stage_i]
+        lh, rh = self.shared[stage_i]
         outs = []
         dlk = arrange_batch(dl, stage.stream_key) if dl is not None else None
         drk = arrange_batch(dr, stage.lookup_key) if dr is not None else None
+        if lh is not None:
+            lh.offer(tick, dlk)
+        if rh is not None:
+            rh.offer(tick, drk)
         if dlk is not None:
-            outs += join_against(dlk, right_arr.batches)
+            outs += join_against(dlk, rh.thru(tick) if rh is not None else right_arr.batches)
         if drk is not None:
-            outs += join_against(drk, left_arr.batches, swap=True)
-        if dlk is not None and drk is not None:
+            outs += join_against(drk, lh.before(tick) if lh is not None else left_arr.batches,
+                                 swap=True)
+        if rh is None and dlk is not None and drk is not None:
             outs += join_against(dlk, [drk])  # arrange_batch consolidated drk
-        if dlk is not None:
+        if lh is None and dlk is not None:
             left_arr.insert(dlk, already_keyed=True)
-        if drk is not None:
+        if rh is None and drk is not None:
             right_arr.insert(drk, already_keyed=True)
         return _union(outs)
 
@@ -217,7 +268,7 @@ class LinearJoinNode(Node):
         stream = ins[0][0] if ins[0] is not None else None
         for i in range(len(self.stages)):
             right = ins[i + 1][0] if ins[i + 1] is not None else None
-            stream = self._binary(i, stream, right)
+            stream = self._binary(i, stream, right, tick)
         if stream is None and errs is None:
             return None
         if stream is not None and self.closure is not None:
@@ -227,15 +278,25 @@ class LinearJoinNode(Node):
 
     def compact(self, since):
         for left, right in self.state:
-            left.compact(since)
-            right.compact(since)
+            if left is not None:
+                left.compact(since)
+            if right is not None:
+                right.compact(since)
 
     def state_info(self):
         out = []
         for i, (left, right) in enumerate(self.state):
-            out.append((f"join_stage{i}_left", len(left.batches), left.total_cap(), left.count()))
-            out.append((f"join_stage{i}_right", len(right.batches), right.total_cap(),
-                        right.count()))
+            lh, rh = self.shared[i]
+            if left is not None:
+                out.append((f"join_stage{i}_left", len(left.batches), left.total_cap(),
+                            left.count()))
+            else:
+                out.append((f"join_stage{i}_left:{lh.name()}",) + _shared_state_info(lh))
+            if right is not None:
+                out.append((f"join_stage{i}_right", len(right.batches), right.total_cap(),
+                            right.count()))
+            else:
+                out.append((f"join_stage{i}_right:{rh.name()}",) + _shared_state_info(rh))
         return out
 
 
@@ -244,21 +305,38 @@ class DeltaJoinNode(Node):
     inputs' arrangements with no intermediate state. Paths run in input
     order; input k's delta enters k's arrangements after path k runs, so
     path k sees inputs j < k up to date and inputs j > k as of the previous
-    paths."""
+    paths.
 
-    def __init__(self, jplan: lir.DeltaJoinPlan, closure, device):
+    `shared` maps (input, lookup key) to a TraceHandle for inputs that are
+    imported collections; a shared trace gives path k the inputs j < k
+    through the tick and j > k before it by time, not by insertion order."""
+
+    def __init__(self, jplan: lir.DeltaJoinPlan, closure, device, shared=None):
         self.plan = jplan
         self.closure = closure
+        self.shared: dict = shared or {}
         self.arrs: dict = {}
         for path in jplan.paths:
             for st in path:
                 key = (st.other_input, st.lookup_key)
-                if key not in self.arrs:
+                if key not in self.arrs and key not in self.shared:
                     self.arrs[key] = Arrangement(key_cols=st.lookup_key, device=device)
+
+    def _lookup_batches(self, k: int, st, tick: int) -> list:
+        key = (st.other_input, st.lookup_key)
+        h = self.shared.get(key)
+        if h is None:
+            return self.arrs[key].batches
+        return h.thru(tick) if st.other_input < k else h.before(tick)
 
     def step(self, tick, ins):
         errs = _union([d[1] for d in ins if d is not None])
         outs = []
+        # shared arrangements take their input's delta first (offers are
+        # idempotent; the first reader of a tick wins)
+        for (inp, key), h in self.shared.items():
+            dk = ins[inp][0] if ins[inp] is not None else None
+            h.offer(tick, arrange_batch(dk, key) if dk is not None else None)
         for k, path in enumerate(self.plan.paths):
             dk = ins[k][0] if ins[k] is not None else None
             stream = dk
@@ -266,11 +344,10 @@ class DeltaJoinNode(Node):
                 if stream is None:
                     break
                 probe = arrange_batch(stream, st.stream_key)
-                stream = _union(join_against(probe, self.arrs[(st.other_input,
-                                                               st.lookup_key)].batches))
+                stream = _union(join_against(probe, self._lookup_batches(k, st, tick)))
             if stream is not None:
                 outs.append(_project(stream, self.plan.permutations[k]))
-            # now publish input k's delta to its arrangements
+            # now publish input k's delta to its private arrangements
             if dk is not None:
                 for (inp, key), arr in self.arrs.items():
                     if inp == k:
@@ -288,10 +365,13 @@ class DeltaJoinNode(Node):
             arr.compact(since)
 
     def state_info(self):
-        return [
+        out = [
             (f"delta_in{inp}_key{list(key)}", len(a.batches), a.total_cap(), a.count())
             for (inp, key), a in self.arrs.items()
         ]
+        for (inp, key), h in self.shared.items():
+            out.append((f"delta_in{inp}_key{list(key)}:{h.name()}",) + _shared_state_info(h))
+        return out
 
 
 def _accum_empty(key_dtypes, accum_dtypes, device) -> AccumState:
@@ -318,6 +398,52 @@ class ReduceNode(Node):
 
     def state_info(self):
         return [("reduce_accums", 1, self.state.cap, int(self.state.count()))]
+
+
+class SharedReduceNode(Node):
+    """Accumulable reduce over a shared aggregate trace: the accumulator
+    table steps once a tick across every reader (SharedReduceTrace memoizes
+    the emission), and an importing dataflow hydrates from the trace's
+    cumulative output instead of re-aggregating its input snapshot."""
+
+    def __init__(self, handle):
+        self.h = handle
+
+    def step(self, tick, ins):
+        d = ins[0]
+        if self.h._hydrating(tick):
+            if self.h.trusted:
+                # live peek: the shared state already reflects the
+                # collection through this tick
+                out, agg_errs = self.h.trace.snapshot(tick)
+            else:
+                # installed import: aggregate the own input snapshot
+                # privately; the shared state takes over after as_of
+                out, agg_errs = self._private_hydration(tick, d)
+            errs = _union([d[1] if d is not None else None, agg_errs])
+            if out is None and errs is None:
+                return None
+            return out, errs
+        if _quiet(d):
+            return _errs_only(d)
+        oks, errs = d
+        out, agg_errs = self.h.trace.step(tick, oks)
+        return out, _union([errs, agg_errs])
+
+    def _private_hydration(self, tick, d):
+        """Aggregate the hydration snapshot against an empty throwaway
+        accumulator (what a private ReduceNode would emit)."""
+        if d is None or d[0] is None:
+            return None, None
+        tr = self.h.trace
+        scratch = AccumState.empty(8, tuple(k.dtype for k in tr.state.keys),
+                                   tuple(a.dtype for a in tr.state.accums),
+                                   tr.state.hashes.device)
+        _state, out, errs = accumulable_step(scratch, d[0], tr.key_cols, tr.aggs, tick)
+        return out, errs
+
+    def state_info(self):
+        return [(self.h.name(),) + _shared_state_info(self.h)]
 
 
 class FusedMfpReduceNode(Node):
@@ -861,18 +987,36 @@ def accum_state_nbytes(st) -> int:
     return n
 
 
+def _shared_handle_nbytes(h) -> int:
+    """Bytes to report for a shared trace handle: importers 0 (the exporter
+    owns the memory), exporters the trace's arrangement (SharedTrace) or
+    accumulator and output arrangement (SharedReduceTrace)."""
+    if h.imported:
+        return 0
+    tr = h.trace
+    arr = getattr(tr, "arr", None)
+    if arr is not None:
+        return arrangement_nbytes(arr)
+    return accum_state_nbytes(tr.state) + arrangement_nbytes(tr.out_arr)
+
+
 def _node_state_bytes(node, rows: list) -> list:
     """Byte counts of one node's state_info rows, aligned with `rows`. The
     port's hashes and times take 8 B a row (4 B in the reference)."""
+    if isinstance(node, (SharedArrangeNode, SharedReduceNode)):
+        return [_shared_handle_nbytes(node.h)]
     if isinstance(node, ArrangeByNode):
         return [arrangement_nbytes(node.arr)]
     if isinstance(node, LinearJoinNode):
         out = []
-        for left, right in node.state:
-            out += [arrangement_nbytes(left), arrangement_nbytes(right)]
+        for (left, right), (lh, rh) in zip(node.state, node.shared):
+            out.append(arrangement_nbytes(left) if left is not None else _shared_handle_nbytes(lh))
+            out.append(arrangement_nbytes(right) if right is not None
+                       else _shared_handle_nbytes(rh))
         return out
     if isinstance(node, DeltaJoinNode):
-        return [arrangement_nbytes(a) for a in node.arrs.values()]
+        return [arrangement_nbytes(a) for a in node.arrs.values()] + [
+            _shared_handle_nbytes(h) for h in node.shared.values()]
     if isinstance(node, (ReduceNode, FusedMfpReduceNode, DistinctNode, ThresholdNode)):
         return [accum_state_nbytes(node.state)]
     if isinstance(node, BasicAggNode):
@@ -905,16 +1049,23 @@ class Dataflow:
     """
 
     def __init__(self, desc: lir.DataflowDescription, shard=None, traces=None,
+                 trace_reader: str | None = None, trace_export: bool = True,
                  operator_logging: bool = False, device="cuda"):
         if shard is not None:
             raise NotImplementedError(
                 "Dataflow(shard=...): the sharded replica's exchange (ShardContext, "
                 "ExchangeNode over parallel/netexchange.py and cluster/mesh.py) is not "
                 "ported yet")
-        if traces is not None:
-            raise NotImplementedError(
-                "Dataflow(traces=...): shared arrangements (arrangement/trace_manager.py, "
-                "SharedArrangeNode, SharedReduceNode) are not ported yet")
+        # `traces`: a TraceManager. Stateful operators over imported
+        # collections import a matching shared trace when one exists, else
+        # build and export one; every use registers `trace_reader`'s since
+        # hold at desc.as_of. `trace_export=False` (one-shot peek dataflows)
+        # imports only: a trace exported by a dataflow that dies after one
+        # tick would go stale at once.
+        self.traces = traces
+        self._trace_reader = trace_reader
+        self._trace_export = trace_export
+        self._trace_handles: dict = {}
         self.device = torch.device(device)
         self.desc = desc
         self.has_temporal = False  # temporal filters need stepping every tick
@@ -942,6 +1093,10 @@ class Dataflow:
         # row counts need a device read a delta, so only with operator_logging
         self.metrics: dict = {}
         self.operator_logging = operator_logging
+        # cooperative cancellation: when set (one-shot peek dataflows), runs
+        # between operator dispatches and raises QueryCanceled once the
+        # statement's deadline passed or a cancel landed
+        self.cancel_check = None
 
     # -- frontier ----------------------------------------------------------
     @property
@@ -1013,6 +1168,58 @@ class Dataflow:
         self._memo[id(expr)] = ref
         return ref
 
+    def _shareable_gid(self, expr):
+        """The collection id of `expr` when it can be shared, else None:
+        only imported collection ids are stable across dataflows."""
+        if self.traces is None or not isinstance(expr, lir.Get):
+            return None
+        return expr.id if expr.id in self.desc.source_imports else None
+
+    def _shared_handle(self, key: tuple, getter):
+        """Memoized TraceHandle for trace `key` (one a dataflow a key), or
+        None when the manager has nothing usable. Peek renders
+        (trace_export=False) get trusted handles: only a live coordinator
+        may read a trace at the importer's as_of."""
+        from ..arrangement.trace_manager import TraceHandle
+
+        hit = self._trace_handles.get(key)
+        if hit is not None:
+            return hit
+        tr, imported = getter()
+        if tr is None:
+            return None
+        h = TraceHandle(tr, imported, self.desc.as_of, trusted=not self._trace_export)
+        self._trace_handles[key] = h
+        return h
+
+    def _shared_arrangement(self, expr, key_cols: tuple):
+        """TraceHandle for an arrangement of `expr` by `key_cols`, or None."""
+        from ..arrangement.trace_manager import TraceManager
+
+        gid = self._shareable_gid(expr)
+        if gid is None:
+            return None
+        return self._shared_handle(
+            TraceManager.arrangement_key(gid, tuple(key_cols)),
+            lambda: self.traces.get_arrangement(
+                gid, tuple(key_cols), self._trace_reader, self.desc.as_of,
+                export=self._trace_export, device=self.device),
+        )
+
+    def _shared_reduce(self, e: lir.Reduce, in_dtypes: tuple):
+        """TraceHandle for a shared accumulable reduce over a Get, or None."""
+        from ..arrangement.trace_manager import TraceManager
+
+        gid = self._shareable_gid(e.input)
+        if gid is None:
+            return None
+        return self._shared_handle(
+            TraceManager.reduce_key(gid, e.key_cols, e.aggs),
+            lambda: self.traces.get_reduce(
+                gid, e.key_cols, e.aggs, in_dtypes, self._trace_reader, self.desc.as_of,
+                export=self._trace_export, device=self.device),
+        )
+
     def _add(self, ops: list, node: Node, refs: list) -> int:
         ops.append((node, refs))
         return len(ops) - 1
@@ -1030,12 +1237,30 @@ class Dataflow:
         if isinstance(e, lir.Union):
             return self._add(ops, UnionNode(), [self._render(i, ops) for i in e.inputs])
         if isinstance(e, lir.ArrangeBy):
-            return self._add(ops, ArrangeByNode(e.key_cols, dev), [self._render(e.input, ops)])
+            h = self._shared_arrangement(e.input, e.key_cols)
+            ref = self._render(e.input, ops)
+            if h is not None:
+                return self._add(ops, SharedArrangeNode(h, e.key_cols), [ref])
+            return self._add(ops, ArrangeByNode(e.key_cols, dev), [ref])
         if isinstance(e, lir.Join):
             refs = [self._render(i, ops) for i in e.inputs]
             if isinstance(e.plan, lir.LinearJoinPlan):
-                return self._add(ops, LinearJoinNode(e.plan, e.closure, dev), refs)
-            return self._add(ops, DeltaJoinNode(e.plan, e.closure, dev), refs)
+                shared = [
+                    (self._shared_arrangement(e.inputs[0], st.stream_key) if si == 0 else None,
+                     self._shared_arrangement(e.inputs[si + 1], st.lookup_key))
+                    for si, st in enumerate(e.plan.stages)
+                ]
+                return self._add(ops, LinearJoinNode(e.plan, e.closure, dev, shared), refs)
+            shared = {}
+            for path in e.plan.paths:
+                for st in path:
+                    key = (st.other_input, st.lookup_key)
+                    if key in shared:
+                        continue
+                    h = self._shared_arrangement(e.inputs[st.other_input], st.lookup_key)
+                    if h is not None:
+                        shared[key] = h
+            return self._add(ops, DeltaJoinNode(e.plan, e.closure, dev, shared), refs)
         if isinstance(e, lir.Reduce):
             from ..expr.scalar import expr_has_dictfunc
 
@@ -1054,6 +1279,9 @@ class Dataflow:
             ref = self._render(e.input, ops)
             if e.distinct:
                 return self._add(ops, DistinctNode(e.key_cols, in_dt, dev), [ref])
+            h = self._shared_reduce(e, in_dt)
+            if h is not None:
+                return self._add(ops, SharedReduceNode(h), [ref])
             return self._add(ops, ReduceNode(e, in_dt, dev), [ref])
         if isinstance(e, lir.BasicAgg):
             ref = self._render(e.input, ops)
@@ -1133,6 +1361,8 @@ class Dataflow:
         for obj_id, ops, out_ref in self.builds:
             slots: list = []
             for op_i, (node, in_refs) in enumerate(ops):
+                if self.cancel_check is not None:
+                    self.cancel_check()
                 ins = [(env.get(r) if isinstance(r, str) else slots[r]) for r in in_refs]
                 t0 = _time.perf_counter_ns()
                 with _prof.named_scope(f"mzt:{type(node).__name__}"):
@@ -1209,6 +1439,10 @@ class Dataflow:
             arr.compact(since)
         for arr in self.index_errs.values():
             arr.compact(since)
+        if self.traces is not None and self._trace_reader is not None:
+            # advance this reader's since holds; each shared trace compacts
+            # to the minimum over its remaining holds
+            self.traces.downgrade(self._trace_reader, since)
 
 
 def _truncate_until(b: Optional[UpdateBatch], until: int) -> Optional[UpdateBatch]:
@@ -1270,30 +1504,33 @@ def _expr_dtype(expr, col_dtypes):
 
 
 def render_dataflow(desc: lir.DataflowDescription, *, fused: bool = False,
-                    exchange_backend: str = "host", mesh=None, caps=None, traces=None,
-                    operator_logging: bool = False, device="cuda"):
+                    exchange_backend: str = "auto", mesh=None, caps=None, traces=None,
+                    trace_reader: str | None = None, operator_logging: bool = False,
+                    snap_rows: int = 0, device="cuda"):
     """Render a DataflowDescription: the one rendering decision point.
 
     The fused single-program renderer is tried when asked for, and the
     host-orchestrated `Dataflow` takes every plan the fused renderer
     refuses (FusedUnsupported), as in the reference; otherwise the plan
-    renders as a `Dataflow`. Both run on `device`.
+    renders as a `Dataflow`. Both run on `device`. `snap_rows` pre-sizes
+    the fused renderer's delta capacity so a hydration tick does not climb
+    the doubling retries.
     """
-    if exchange_backend != "host" or mesh is not None:
+    if exchange_backend == "device" or mesh is not None:
         raise NotImplementedError(
             f"render_dataflow(exchange_backend={exchange_backend!r}, mesh=...): only the "
             "host exchange is ported; the device exchange plane needs FusedDataflow's "
-            "mesh mode, which is not ported yet")
-    if traces is not None:
-        raise NotImplementedError(
-            "render_dataflow(traces=...): shared arrangements "
-            "(arrangement/trace_manager.py) are not ported yet")
+            "mesh mode (dataflow/fused.py), which is not ported yet")
     if fused:
         from .fused import FusedDataflow, FusedUnsupported
 
         try:
-            return FusedDataflow(desc, caps=caps, operator_logging=operator_logging,
-                                 device=device)
+            df = FusedDataflow(desc, caps=caps, traces=traces,
+                               operator_logging=operator_logging, device=device)
+            if snap_rows:
+                df.ensure_delta_capacity(int(snap_rows))
+            return df
         except FusedUnsupported:
             pass
-    return Dataflow(desc, operator_logging=operator_logging, device=device)
+    return Dataflow(desc, traces=traces, trace_reader=trace_reader,
+                    operator_logging=operator_logging, device=device)

@@ -4,7 +4,8 @@ Counterpart of materialize_tpu/expr/linear.py (`MapFilterProject.apply`).
 Appended map expressions, a conjunction of predicates, then a projection,
 evaluated columnwise over a batch. Filtered rows keep their slot with
 diff 0; erroring rows go to a parallel error batch instead of trapping.
-The MFP builder and composition come with the SQL layers.
+`MfpBuilder` fuses a chain of Map/Filter/Project steps into one MFP (the
+SQL lowering and the coordinator's fast-path peeks use it).
 """
 
 from __future__ import annotations
@@ -15,11 +16,93 @@ import torch
 
 from ..repr.batch import PAD_TIME, UpdateBatch
 from ..repr.hashing import PAD_HASH
-from .scalar import _truth, eval_expr3, force_sentinel
+from .scalar import (
+    CallBinary,
+    CallUnary,
+    CallVariadic,
+    Column,
+    DictFunc,
+    Literal,
+    ScalarExpr,
+    _truth,
+    eval_expr3,
+    force_sentinel,
+)
 
 
 def _pad(mask: torch.Tensor, col: torch.Tensor, fill) -> torch.Tensor:
     return torch.where(mask, col, torch.full_like(col, fill))
+
+
+def substitute_columns(e: ScalarExpr, mapping) -> ScalarExpr:
+    """Rewrite Column indices through `mapping` (list or dict)."""
+    if isinstance(e, Column):
+        return Column(mapping[e.index])
+    if isinstance(e, Literal):
+        return e
+    if isinstance(e, CallUnary):
+        return CallUnary(e.func, substitute_columns(e.expr, mapping))
+    if isinstance(e, CallBinary):
+        return CallBinary(
+            e.func,
+            substitute_columns(e.left, mapping),
+            substitute_columns(e.right, mapping),
+        )
+    if isinstance(e, CallVariadic):
+        return CallVariadic(
+            e.func, tuple(substitute_columns(x, mapping) for x in e.exprs)
+        )
+    if isinstance(e, DictFunc):
+        return DictFunc(
+            e.spec,
+            tuple(substitute_columns(x, mapping) for x in e.args),
+            e.argtypes,
+            e.out,
+            e.tables,
+        )
+    raise TypeError(f"not a ScalarExpr: {e!r}")
+
+
+class MfpBuilder:
+    """Incrementally fuse Map/Filter/Project steps into one MapFilterProject.
+
+    Tracks the current output→storage column mapping so later expressions are
+    rewritten into the flat (input ++ maps) column space, mirroring the
+    reference's MapFilterProject builder (src/expr/src/linear.rs:45).
+    """
+
+    def __init__(self, input_arity: int):
+        self.input_arity = input_arity
+        self.maps: list = []
+        self.predicates: list = []
+        self.proj: list[int] = list(range(input_arity))
+
+    def add_maps(self, exprs) -> None:
+        for e in exprs:
+            remapped = substitute_columns(e, self.proj)
+            self.maps.append(remapped)
+            self.proj.append(self.input_arity + len(self.maps) - 1)
+
+    def add_predicates(self, exprs) -> None:
+        for e in exprs:
+            self.predicates.append(substitute_columns(e, self.proj))
+
+    def project(self, outputs) -> None:
+        self.proj = [self.proj[i] for i in outputs]
+
+    def absorb(self, mfp: "MapFilterProject") -> None:
+        self.add_maps(mfp.map_exprs)
+        self.add_predicates(mfp.predicates)
+        if mfp.projection is not None:
+            self.project(mfp.projection)
+
+    def finish(self) -> "MapFilterProject":
+        return MapFilterProject(
+            self.input_arity,
+            tuple(self.maps),
+            tuple(self.predicates),
+            tuple(self.proj),
+        )
 
 
 @dataclass(frozen=True)

@@ -669,3 +669,117 @@ def expr_has_dictfunc(expr: ScalarExpr) -> bool:
     if isinstance(expr, CallVariadic):
         return any(expr_has_dictfunc(e) for e in expr.exprs)
     return False
+
+
+# -- host mirrors of the date and float kernels ------------------------------
+# (the coordinator evaluates INSERT/UPDATE expressions and fast-path peek
+# MFPs row by row on the host; these give the device kernels' results)
+
+_FLOAT_UNARY_NP = {
+    "floor": np.floor,
+    "ceil": np.ceil,
+    "trunc": np.trunc,
+    "exp": np.exp,
+    "ln": np.log,
+    "log10": np.log10,
+    "log2": np.log2,
+    "sin": np.sin,
+    "cos": np.cos,
+    "tan": np.tan,
+    "asin": np.arcsin,
+    "acos": np.arccos,
+    "atan": np.arctan,
+    "sinh": np.sinh,
+    "cosh": np.cosh,
+    "tanh": np.tanh,
+    "cot": lambda v: np.float32(1.0) / np.tan(v),
+    "cbrt": np.cbrt,
+    "degrees": np.degrees,
+    "radians": np.radians,
+}
+
+
+def add_months_int(v: int, n: int) -> int:
+    """Host mirror of the device add_months kernel (same clamp rule)."""
+    y, m, d = civil_from_days_int(int(v))
+    t = y * 12 + (m - 1) + int(n)
+    y2, m2 = t // 12, t % 12 + 1
+    leap = (y2 % 4 == 0 and y2 % 100 != 0) or y2 % 400 == 0
+    dim = [31, 29 if leap else 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31][m2 - 1]
+    return days_from_civil_int(y2, m2, min(d, dim))
+
+
+def civil_from_days_int(days: int) -> tuple:
+    """Pure-int (y, m, d) from a day number since 1992-01-01 — the single
+    definition both the device kernel and host fast-path interpreter use."""
+    z = days + _D1992 + 719468
+    era = z // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + (3 if mp < 10 else -9)
+    return y + (1 if m <= 2 else 0), m, d
+
+
+def days_from_civil_int(y: int, m: int, d: int) -> int:
+    """Pure-int inverse of civil_from_days_int (host mirror of _days_from_civil)."""
+    y = y - (1 if m <= 2 else 0)
+    era = y // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468 - _D1992
+
+
+def date_unary_int(f: str, v: int) -> int:
+    """Host mirror of _DATE_UNARY for the fast-path row interpreter —
+    bit-identical to the device kernels (both are pure integer Hinnant
+    calendar arithmetic)."""
+    v = int(v)
+    if f == "extract_dow":
+        return (v + _D1992 + 4) % 7
+    if f == "extract_isodow":
+        return (v + _D1992 + 3) % 7 + 1
+    y, m, d = civil_from_days_int(v)
+    if f == "extract_doy":
+        return v - days_from_civil_int(y, 1, 1) + 1
+    if f == "extract_quarter":
+        return (m + 2) // 3
+    if f == "extract_week":
+        doy = v - days_from_civil_int(y, 1, 1) + 1
+        isodow = (v + _D1992 + 3) % 7 + 1
+        w = (doy - isodow + 10) // 7
+
+        def long_year(yy):
+            jan1 = days_from_civil_int(yy, 1, 1)
+            dw = (jan1 + _D1992 + 3) % 7 + 1
+            leap = (yy % 4 == 0 and yy % 100 != 0) or yy % 400 == 0
+            return dw == 4 or (leap and dw == 3)
+
+        if w < 1:
+            return 53 if long_year(y - 1) else 52
+        if w > (53 if long_year(y) else 52):
+            return 1
+        return w
+    if f == "extract_epoch_date":
+        return (v + _D1992) * 86400
+    if f == "extract_century":
+        return (y + 99) // 100
+    if f == "extract_decade":
+        return y // 10
+    if f == "extract_millennium":
+        return (y + 999) // 1000
+    if f == "date_trunc_year":
+        return days_from_civil_int(y, 1, 1)
+    if f == "date_trunc_quarter":
+        return days_from_civil_int(y, ((m - 1) // 3) * 3 + 1, 1)
+    if f == "date_trunc_month":
+        return days_from_civil_int(y, m, 1)
+    if f == "date_trunc_week":
+        return v - ((v + _D1992 + 3) % 7)
+    if f == "date_trunc_day":
+        return v
+    raise NotImplementedError(f"date func {f}")

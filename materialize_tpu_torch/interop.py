@@ -23,6 +23,14 @@ dataflow and iteration clock), the index and error traces, the frontier,
 `since` and the operator metrics. It reads the JAX objects by duck typing
 (their attributes and class names); their arrays convert through
 `np.asarray`.
+
+Dataflows rendered with shared arrangements (`traces=`) carry across in
+two steps: render the port dataflows against a port `TraceManager` in the
+order the JAX ones were rendered (so the same traces are exported and
+imported), then `load_trace_manager(dst_tm, src_tm)` fills every shared
+trace with the JAX one's contents, holds, frontier and staged delta, and
+`load_dataflow` carries each dataflow's own state and its trace handles'
+staged hydration batches.
 """
 
 from __future__ import annotations
@@ -54,6 +62,13 @@ _NODE_STATE = {
     "MonotonicTopKNode": ("out_arr",),
     "TemporalFilterNode": ("pending",),
     "LetRecNode": ("inner_time", "started"),
+}
+
+# shared-trace state, by trace class: the attributes `load_trace_manager`
+# carries
+_TRACE_STATE = {
+    "SharedTrace": ("arr", "delta", "frontier"),
+    "SharedReduceTrace": ("state", "out_arr", "err_arr", "frontier", "cached"),
 }
 
 
@@ -209,8 +224,29 @@ def load_dataflow(dst, src) -> None:
                 dn.dct._code.update(sn.dct._code)
             if name == "LetRecNode":
                 load_dataflow(dn.inner, sn.inner)
+    for key, h in getattr(src, "_trace_handles", {}).items():
+        dst._trace_handles[key]._hyd = _carry(h._hyd, dev)
     for spines in ("index_traces", "index_errs"):
         setattr(dst, spines, {k: _carry(a, dev) for k, a in getattr(src, spines).items()})
     dst._frontier = _carry(src._frontier, dev)
     dst._last_complete = int(src._last_complete)
     dst.metrics = {k: dict(m) for k, m in src.metrics.items()}
+
+
+def load_trace_manager(dst, src, device="cuda") -> None:
+    """Load JAX `TraceManager` `src`'s shared traces into port manager
+    `dst`, whose traces were exported by port dataflows rendered from the
+    same descriptions in the same order. Each trace is filled in place (the
+    port dataflows' handles keep pointing at it); the counters are copied."""
+    if set(dst.traces) != set(src.traces):
+        raise ValueError("the two managers share different traces")
+    for key, st in src.traces.items():
+        dt = dst.traces[key]
+        kind = type(st).__name__
+        if kind != type(dt).__name__:
+            raise ValueError(f"trace {key}: {kind} against {type(dt).__name__}")
+        for attr in _TRACE_STATE[kind]:
+            setattr(dt, attr, _carry(getattr(st, attr), device))
+        dt.exporter = st.exporter
+    dst.stats = dict(src.stats)
+    dst.epoch = src.epoch

@@ -15,6 +15,10 @@ NULLs, zero divisors and out-of-dictionary string codes among the values.
   evaluation), a host-rendered generate_series FlatMap and the basic
   aggregates (string_agg, array_agg, jsonb_agg, min over strings).
 
+`shared_desc` adds the shared-arrangement nodes (SharedArrangeNode,
+SharedReduceNode, shared join sides): dataflows that read sources s and t
+through one TraceManager (rendered with `traces=`, so not in `CASES`).
+
 Q3 (models/tpch.py) adds the DeltaJoin. The port's tests run these cases
 against the JAX package on the CPU; chip_smoke.py runs them on the card
 against the port's own CPU run.
@@ -290,6 +294,40 @@ def series_ticks(n_ticks=3):
 
 
 # name -> (description, input ticks, compact (after tick, since) or None)
+SHARED_SOURCES = {"s": (I64,) * 3, "t": (I64,) * 2}
+
+
+def shared_desc(which: str, as_of: int = 1) -> lir.DataflowDescription:
+    """A dataflow over sources s and t for rendering with a TraceManager:
+    "first" an accumulable reduce over s (SharedReduceNode), a linear join
+    s ⋈ t (both sides shared) and an ArrangeBy of t (SharedArrangeNode);
+    "second" the same reduce and join and an ArrangeBy of s, which import
+    what "first" exported; "third" a join and a new ArrangeBy of t;
+    "fresh" a count over t by its second column, which none exports."""
+    A = AggregateExpr
+    agg = lir.Reduce(lir.Get("s"), key_cols=(0,), aggs=(A("sum", C(1)), A("count", L(1))))
+    join = lir.Join(inputs=(lir.Get("s"), lir.Get("t")),
+                    plan=lir.LinearJoinPlan(stages=(lir.JoinStage((0,), (0,)),)), closure=None)
+    objects = {
+        "first": {"agg": (agg, 3), "j": (join, 5), "arr": (lir.ArrangeBy(lir.Get("t"), (1,)), 2)},
+        "second": {"agg2": (agg, 3), "j2": (join, 5),
+                   "arr2": (lir.ArrangeBy(lir.Get("s"), (2,)), 3)},
+        "third": {"arr3": (lir.ArrangeBy(lir.Get("t"), (0, 1)), 2), "j3": (join, 5)},
+        "fresh": {"u": (lir.Reduce(lir.Get("t"), key_cols=(1,), aggs=(A("count", L(1)),)), 2)},
+    }[which]
+    return lir.DataflowDescription(
+        source_imports=dict(SHARED_SOURCES),
+        objects_to_build=[lir.BuildDesc(i, p, (I64,) * n) for i, (p, n) in objects.items()],
+        index_exports={f"idx_{i}": (i, (0,)) for i in objects}, as_of=as_of)
+
+
+def shared_ticks(n_ticks=7):
+    return churn(5, n_ticks, 4, {
+        "s": lambda rng, n: (_ints(rng, n, 0, 5), _ints(rng, n, -50, 50), _ints(rng, n, 0, 3)),
+        "t": lambda rng, n: (_ints(rng, n, 0, 5), _ints(rng, n, 0, 9)),
+    })
+
+
 CASES = {
     "relational_joins": (lambda: relational_desc(("lj", "red", "fred")), relational_ticks, (3, 3)),
     "relational_sets": (lambda: relational_desc(("dist", "thr", "top", "mtop")), relational_ticks,

@@ -1,0 +1,1017 @@
+"""Recursive-descent SQL parser.
+
+Counterpart of materialize_tpu/sql/parser.py: host Python, kept as a copy in the
+port (which never imports the JAX package) and held to the same
+behaviour by the port's tests.
+
+The analogue of the reference's hand-written parser (`mz-sql-parser`,
+doc/developer/life-of-a-query.md:104-112 notes it's a recursive-descent
+PostgreSQL-dialect fork). Precedence follows PostgreSQL:
+  OR < AND < NOT < comparison < IS/BETWEEN/IN/LIKE < + - < * / % < unary - < :: .
+
+The lexer (the reference's sql/lexer.py) comes first in this module:
+The analogue of the reference's `mz-sql-lexer` (src/sql-lexer): keywords are
+case-insensitive, identifiers fold to lowercase unless double-quoted, strings
+are single-quoted with '' escaping.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from . import ast
+
+
+
+@dataclass(frozen=True)
+class Token:
+    kind: str  # KW | IDENT | NUMBER | STRING | OP | EOF
+    value: str
+    pos: int
+
+
+KEYWORDS = {
+    "select", "from", "where", "group", "by", "having", "order", "limit",
+    "offset", "as", "and", "or", "not", "join", "inner", "left", "right",
+    "full", "outer", "on", "cross", "union", "all", "except", "intersect",
+    "distinct", "create", "materialized", "view", "table", "source", "index",
+    "insert", "into", "values", "delete", "drop", "show", "explain", "sink",
+    "in", "exists", "between", "like", "ilike", "is", "null", "true", "false", "case",
+    "when", "then", "else", "end", "cast", "asc", "desc", "with", "load",
+    "generator", "for", "auction", "tpch", "counter", "subscribe", "to",
+    "tables", "columns", "indexes", "sources", "views", "nulls", "first",
+    "last", "date", "interval", "default", "if", "scale", "factor", "cluster",
+    "replicas", "replica", "size", "set", "alter", "system", "update",
+    "over", "partition",
+}
+
+_TWO_CHAR_OPS = {"<=", ">=", "<>", "!=", "||", "::", "->"}
+
+
+def lex(sql: str) -> list[Token]:
+    toks: list[Token] = []
+    i, n = 0, len(sql)
+    while i < n:
+        c = sql[i]
+        if c.isspace():
+            i += 1
+            continue
+        if c == "-" and i + 1 < n and sql[i + 1] == "-":  # line comment
+            while i < n and sql[i] != "\n":
+                i += 1
+            continue
+        if c == "/" and i + 1 < n and sql[i + 1] == "*":
+            j = sql.find("*/", i + 2)
+            i = n if j < 0 else j + 2
+            continue
+        if c == "'":
+            j = i + 1
+            buf = []
+            while j < n:
+                if sql[j] == "'" and j + 1 < n and sql[j + 1] == "'":
+                    buf.append("'")
+                    j += 2
+                elif sql[j] == "'":
+                    break
+                else:
+                    buf.append(sql[j])
+                    j += 1
+            toks.append(Token("STRING", "".join(buf), i))
+            i = j + 1
+            continue
+        if c == '"':
+            j = sql.find('"', i + 1)
+            if j < 0:
+                raise ValueError(f"unterminated quoted identifier at {i}")
+            toks.append(Token("IDENT", sql[i + 1 : j], i))
+            i = j + 1
+            continue
+        if c.isdigit() or (c == "." and i + 1 < n and sql[i + 1].isdigit()):
+            j = i
+            seen_dot = False
+            while j < n and (sql[j].isdigit() or (sql[j] == "." and not seen_dot)):
+                if sql[j] == ".":
+                    seen_dot = True
+                j += 1
+            # scientific notation: 1e30, 2.5E-3, 1e+6
+            if (
+                j < n
+                and sql[j] in "eE"
+                and (
+                    (j + 1 < n and sql[j + 1].isdigit())
+                    or (
+                        j + 2 < n
+                        and sql[j + 1] in "+-"
+                        and sql[j + 2].isdigit()
+                    )
+                )
+            ):
+                j += 2 if sql[j + 1] in "+-" else 1
+                while j < n and sql[j].isdigit():
+                    j += 1
+            toks.append(Token("NUMBER", sql[i:j], i))
+            i = j
+            continue
+        if c.isalpha() or c == "_":
+            j = i
+            while j < n and (sql[j].isalnum() or sql[j] == "_"):
+                j += 1
+            word = sql[i:j].lower()
+            toks.append(Token("KW" if word in KEYWORDS else "IDENT", word, i))
+            i = j
+            continue
+        if c == "$" and i + 1 < n and sql[i + 1].isdigit():
+            j = i + 1
+            while j < n and sql[j].isdigit():
+                j += 1
+            toks.append(Token("PARAM", sql[i + 1 : j], i))
+            i = j
+            continue
+        if sql[i : i + 3] == "->>":
+            toks.append(Token("OP", "->>", i))
+            i += 3
+            continue
+        two = sql[i : i + 2]
+        if two in _TWO_CHAR_OPS:
+            toks.append(Token("OP", two, i))
+            i += 2
+            continue
+        if c in "+-*/%(),.;=<>[]":
+            toks.append(Token("OP", c, i))
+            i += 1
+            continue
+        raise ValueError(f"unexpected character {c!r} at {i}")
+    toks.append(Token("EOF", "", n))
+    return toks
+
+
+# -- the parser --------------------------------------------------------------
+
+
+class ParseError(ValueError):
+    pass
+
+
+class Parser:
+    def __init__(self, sql: str):
+        self.toks = lex(sql)
+        self.i = 0
+
+    # -- token helpers -------------------------------------------------------
+    def peek(self, k: int = 0) -> Token:
+        return self.toks[min(self.i + k, len(self.toks) - 1)]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def at_kw(self, *words: str) -> bool:
+        t = self.peek()
+        return t.kind == "KW" and t.value in words
+
+    def eat_kw(self, *words: str) -> bool:
+        if self.at_kw(*words):
+            self.next()
+            return True
+        return False
+
+    def expect_kw(self, word: str) -> None:
+        if not self.eat_kw(word):
+            raise ParseError(f"expected {word.upper()}, found {self.peek().value!r}")
+
+    def at_op(self, op: str) -> bool:
+        t = self.peek()
+        return t.kind == "OP" and t.value == op
+
+    def eat_op(self, op: str) -> bool:
+        if self.at_op(op):
+            self.next()
+            return True
+        return False
+
+    def expect_op(self, op: str) -> None:
+        if not self.eat_op(op):
+            raise ParseError(f"expected {op!r}, found {self.peek().value!r}")
+
+    def ident(self) -> str:
+        t = self.peek()
+        if t.kind == "IDENT" or t.kind == "KW":
+            self.next()
+            return t.value
+        raise ParseError(f"expected identifier, found {t.value!r}")
+
+    # -- entry ----------------------------------------------------------------
+    def parse_statement(self):
+        if self.at_kw("select", "with", "values") or self.at_op("("):
+            return ast.SelectStatement(self.parse_query())
+        if self.at_kw("create"):
+            return self.parse_create()
+        if self.at_kw("insert"):
+            return self.parse_insert()
+        if self.at_kw("delete"):
+            return self.parse_delete()
+        if self.at_kw("update"):
+            return self.parse_update()
+        if self.at_kw("explain"):
+            return self.parse_explain()
+        if self.at_kw("show"):
+            return self.parse_show()
+        if self.at_kw("drop"):
+            return self.parse_drop()
+        if self.at_kw("alter"):
+            self.next()
+            self.expect_kw("system")
+            self.expect_kw("set")
+            name = self.ident()
+            self.expect_op("=")
+            t = self.next()
+            return ast.SetVariable(name, t.value, system=True)
+        if self.at_kw("set"):
+            self.next()
+            name = self.ident()
+            if self.eat_kw("to"):
+                pass
+            else:
+                self.expect_op("=")
+            t = self.next()
+            return ast.SetVariable(name, t.value, system=False)
+        if self.at_kw("reset") or (
+            self.peek().kind == "IDENT" and self.peek().value == "reset"
+        ):
+            self.next()
+            return ast.ResetVariable(self.ident())
+        if self.peek().kind == "IDENT" and self.peek().value == "copy":
+            self.next()
+            if self.eat_op("("):
+                q = self.parse_query()
+                self.expect_op(")")
+            else:
+                name = self.ident()
+                q = ast.Query(
+                    ast.Select(
+                        items=(ast.SelectItem(ast.Star()),),
+                        from_=(ast.TableRef(name),),
+                    )
+                )
+            self.expect_kw("to")
+            target = self.ident()
+            if target != "stdout":
+                raise ParseError("only COPY … TO STDOUT is supported")
+            fmt = "csv"
+            if self.eat_kw("with"):
+                self.expect_op("(")
+                self.ident()  # format
+                fmt = self.ident()
+                self.expect_op(")")
+            return ast.Copy(q, fmt)
+        if self.at_kw("subscribe"):
+            self.next()
+            self.eat_kw("to")
+            if self.at_op("("):
+                self.next()
+                q = self.parse_query()
+                self.expect_op(")")
+            else:
+                name = self.ident()
+                q = ast.Query(
+                    ast.Select(
+                        items=(ast.SelectItem(ast.Star()),),
+                        from_=(ast.TableRef(name),),
+                    )
+                )
+            snapshot, progress = True, False
+            if self.eat_kw("with"):
+                self.expect_op("(")
+                while not self.at_op(")"):
+                    opt = self.ident().lower()
+                    if opt == "snapshot":
+                        snapshot = True
+                        if self.at_kw("true") or self.at_kw("false"):
+                            snapshot = self.next().value == "true"
+                    elif opt == "progress":
+                        progress = True
+                    else:
+                        raise ParseError(f"unknown SUBSCRIBE option {opt!r}")
+                    self.eat_op(",")
+                self.expect_op(")")
+            return ast.Subscribe(q, snapshot=snapshot, progress=progress)
+        raise ParseError(f"unsupported statement start: {self.peek().value!r}")
+
+    # -- DDL ------------------------------------------------------------------
+    def parse_create(self):
+        self.expect_kw("create")
+        if self.eat_kw("table"):
+            name = self.ident()
+            self.expect_op("(")
+            cols = []
+            while True:
+                cname = self.ident()
+                ctyp = self.parse_type_name()
+                not_null = False
+                if self.eat_kw("not"):
+                    self.expect_kw("null")
+                    not_null = True
+                cols.append(ast.ColumnDef(cname, ctyp, not_null))
+                if not self.eat_op(","):
+                    break
+            self.expect_op(")")
+            return ast.CreateTable(name, tuple(cols))
+        if self.eat_kw("source"):
+            name = self.ident()
+            columns = []
+            if self.eat_op("("):
+                while not self.at_op(")"):
+                    cname = self.ident()
+                    ctyp = self.parse_type_name()
+                    columns.append(ast.ColumnDef(cname, ctyp))
+                    self.eat_op(",")
+                self.expect_op(")")
+            self.expect_kw("from")
+            if self.peek().kind == "IDENT" and self.peek().value == "file":
+                return self._parse_file_source(name, tuple(columns))
+            if columns:
+                raise ParseError(
+                    "column lists are only supported on FILE sources"
+                )
+            self.expect_kw("load")
+            self.expect_kw("generator")
+            gen = self.ident()
+            if gen == "key" and self.peek().value == "value":
+                self.next()
+                gen = "key_value"
+            options = []
+            if self.eat_op("("):
+                while not self.at_op(")"):
+                    key = self.ident()
+                    while self.peek().kind in ("KW", "IDENT") and not self.at_op(","):
+                        nxt = self.peek()
+                        if nxt.kind in ("KW", "IDENT"):
+                            key += " " + self.next().value
+                        else:
+                            break
+                        if self.peek().kind in ("NUMBER", "STRING"):
+                            break
+                    val = None
+                    t = self.peek()
+                    if t.kind in ("NUMBER", "STRING"):
+                        val = self.next().value
+                    options.append((key, val))
+                    self.eat_op(",")
+                self.expect_op(")")
+            return ast.CreateSource(name, gen, tuple(options))
+        if self.eat_kw("sink"):
+            name = self.ident()
+            self.expect_kw("from")
+            from_name = self.ident()
+            self.expect_kw("into")
+            if self.ident().lower() != "file":
+                raise ParseError("only CREATE SINK … INTO FILE is supported")
+            t = self.peek()
+            if t.kind != "STRING":
+                raise ParseError(f"expected file path string, found {t.value!r}")
+            path = self.next().value
+            fmt = "json"
+            if self.peek().kind == "IDENT" and self.peek().value == "format":
+                self.next()
+                fmt = self.ident().lower()
+            if fmt not in ("json", "csv"):
+                raise ParseError(f"unsupported sink format {fmt!r}")
+            return ast.CreateSink(name, from_name, path, fmt)
+        if self.eat_kw("materialized"):
+            self.expect_kw("view")
+            name = self.ident()
+            self.expect_kw("as")
+            return ast.CreateMaterializedView(name, self.parse_query())
+        if self.eat_kw("view"):
+            name = self.ident()
+            self.expect_kw("as")
+            return ast.CreateView(name, self.parse_query())
+        if self.eat_kw("default"):
+            self.expect_kw("index")
+            self.expect_kw("on")
+            return ast.CreateIndex(None, self.ident(), ())
+        if self.eat_kw("index"):
+            name = None
+            if not self.at_kw("on"):
+                name = self.ident()
+            self.expect_kw("on")
+            on = self.ident()
+            cols = []
+            if self.eat_op("("):
+                while not self.at_op(")"):
+                    cols.append(self.ident())
+                    self.eat_op(",")
+                self.expect_op(")")
+            return ast.CreateIndex(name, on, tuple(cols))
+        raise ParseError(f"unsupported CREATE {self.peek().value!r}")
+
+    def _parse_file_source(self, name: str, columns: tuple):
+        self.next()  # 'file'
+        t = self.peek()
+        if t.kind != "STRING":
+            raise ParseError(f"expected file path string, found {t.value!r}")
+        path = self.next().value
+        fmt = "json"
+        if self.eat_op("("):
+            while not self.at_op(")"):
+                key = self.ident().lower()
+                if key == "format":
+                    fmt = self.ident().lower()
+                else:
+                    raise ParseError(f"unknown file source option {key!r}")
+                self.eat_op(",")
+            self.expect_op(")")
+        if fmt not in ("json", "csv", "avro"):
+            raise ParseError(f"unsupported file source format {fmt!r}")
+        envelope, key_cols = "none", ()
+        if self.peek().kind == "IDENT" and self.peek().value == "envelope":
+            self.next()
+            env = self.ident().lower()
+            if env != "upsert":
+                raise ParseError(f"unsupported envelope {env!r}")
+            envelope = "upsert"
+            if self.eat_op("("):
+                kw = self.ident().lower()
+                if kw != "key":
+                    raise ParseError("expected KEY (cols) in ENVELOPE UPSERT")
+                self.expect_op("(")
+                cols = []
+                while not self.at_op(")"):
+                    cols.append(self.ident())
+                    self.eat_op(",")
+                self.expect_op(")")
+                self.expect_op(")")
+                key_cols = tuple(cols)
+        if not columns:
+            raise ParseError("file sources require an explicit column list")
+        return ast.CreateFileSource(name, columns, path, fmt, envelope, key_cols)
+
+    def parse_type_name(self) -> str:
+        base = self.ident()
+        # numeric(p, s), varchar(n) — swallow parenthesized params
+        if self.eat_op("("):
+            while not self.at_op(")"):
+                self.next()
+            self.expect_op(")")
+        # timestamp with time zone
+        while self.peek().kind in ("KW", "IDENT") and self.peek().value in (
+            "with", "without", "time", "zone", "precision", "varying",
+        ):
+            base += " " + self.next().value
+        return base
+
+    # -- DML ------------------------------------------------------------------
+    def parse_insert(self):
+        self.expect_kw("insert")
+        self.expect_kw("into")
+        table = self.ident()
+        cols = []
+        if self.at_op("("):
+            self.next()
+            while not self.at_op(")"):
+                cols.append(self.ident())
+                self.eat_op(",")
+            self.expect_op(")")
+        self.expect_kw("values")
+        rows = []
+        while True:
+            self.expect_op("(")
+            row = []
+            while not self.at_op(")"):
+                row.append(self.parse_expr())
+                self.eat_op(",")
+            self.expect_op(")")
+            rows.append(tuple(row))
+            if not self.eat_op(","):
+                break
+        return ast.Insert(table, tuple(cols), tuple(rows))
+
+    def parse_delete(self):
+        self.expect_kw("delete")
+        self.expect_kw("from")
+        table = self.ident()
+        where = self.parse_expr() if self.eat_kw("where") else None
+        return ast.Delete(table, where)
+
+    def parse_update(self):
+        self.expect_kw("update")
+        table = self.ident()
+        self.expect_kw("set")
+        assignments = []
+        while True:
+            col = self.ident()
+            self.expect_op("=")
+            assignments.append((col, self.parse_expr()))
+            if not self.eat_op(","):
+                break
+        where = self.parse_expr() if self.eat_kw("where") else None
+        return ast.Update(table, tuple(assignments), where)
+
+    def parse_explain(self):
+        self.expect_kw("explain")
+        stage = "optimized"
+        if self.peek().kind == "IDENT" and self.peek().value == "timestamp":
+            self.next()
+            self.eat_kw("for")
+            return ast.Explain("timestamp", self.parse_statement())
+        if self.peek().kind == "IDENT" and self.peek().value == "timeline":
+            # EXPLAIN TIMELINE <stmt>: run it and render the span tree
+            self.next()
+            self.eat_kw("for")
+            return ast.Explain("timeline", self.parse_statement())
+        if self.peek().kind == "IDENT" and self.peek().value in ("raw", "decorrelated", "optimized", "physical"):
+            stage = self.next().value
+            if self.peek().kind == "IDENT" and self.peek().value == "plan":
+                self.next()
+            self.eat_kw("for")
+        return ast.Explain(stage, self.parse_statement())
+
+    def parse_show(self):
+        self.expect_kw("show")
+        if self.eat_kw("all"):
+            return ast.Show("all")
+        what = self.ident()
+        on = None
+        if self.eat_kw("from") or self.eat_kw("on"):
+            on = self.ident()
+        return ast.Show(what, on)
+
+    def parse_drop(self):
+        self.expect_kw("drop")
+        if self.eat_kw("materialized"):
+            self.expect_kw("view")
+            kind = "materialized view"
+        else:
+            kind = self.ident()
+        if_exists = False
+        if self.eat_kw("if"):
+            self.ident()  # exists
+            if_exists = True
+        name = self.ident()
+        return ast.DropObject(kind, name, if_exists)
+
+    # -- queries ----------------------------------------------------------------
+    def parse_query(self) -> ast.Query:
+        ctes: list = []
+        recursive = False
+        if self.at_kw("with") and not self.at_kw("when"):
+            self.next()
+            if self.peek().value == "mutually":
+                self.next()
+                if self.peek().value != "recursive":
+                    raise ParseError("expected RECURSIVE after MUTUALLY")
+                self.next()
+                recursive = True
+            elif self.peek().value == "recursive":
+                self.next()
+                recursive = True
+            while True:
+                name = self.ident()
+                cols = []
+                if self.at_op("("):
+                    self.next()
+                    while not self.at_op(")"):
+                        cname = self.ident()
+                        ctyp = self.parse_type_name()
+                        cols.append((cname, ctyp))
+                        self.eat_op(",")
+                    self.expect_op(")")
+                self.expect_kw("as")
+                self.expect_op("(")
+                q = self.parse_query()
+                self.expect_op(")")
+                ctes.append(ast.CteBinding(name, q, tuple(cols)))
+                if not self.eat_op(","):
+                    break
+        body = self.parse_set_expr()
+        order_by = []
+        if self.eat_kw("order"):
+            self.expect_kw("by")
+            order_by = self.parse_order_items()
+        limit = None
+        offset = 0
+        if self.eat_kw("limit"):
+            limit = int(self.next().value)
+        if self.eat_kw("offset"):
+            offset = int(self.next().value)
+        return ast.Query(
+            body, tuple(order_by), limit, offset, tuple(ctes), recursive
+        )
+
+    def parse_order_items(self) -> list:
+        """Comma list of `expr [ASC|DESC] [NULLS FIRST|LAST]` items."""
+        out = []
+        while True:
+            e = self.parse_expr()
+            desc = False
+            if self.eat_kw("desc"):
+                desc = True
+            elif self.eat_kw("asc"):
+                pass
+            nulls_last = None
+            if self.eat_kw("nulls"):
+                pos = self.ident().lower()
+                if pos not in ("first", "last"):
+                    raise ParseError(f"expected FIRST or LAST after NULLS, got {pos}")
+                nulls_last = pos == "last"
+            out.append(ast.OrderByItem(e, desc, nulls_last))
+            if not self.eat_op(","):
+                break
+        return out
+
+    def parse_over(self):
+        """`OVER ( [PARTITION BY exprs] [ORDER BY items] )` if present, else None."""
+        if not self.eat_kw("over"):
+            return None
+        self.expect_op("(")
+        partition_by = []
+        if self.eat_kw("partition"):
+            self.expect_kw("by")
+            partition_by.append(self.parse_expr())
+            while self.eat_op(","):
+                partition_by.append(self.parse_expr())
+        order_by = []
+        if self.eat_kw("order"):
+            self.expect_kw("by")
+            order_by = self.parse_order_items()
+        self.expect_op(")")
+        return ast.WindowSpec(tuple(partition_by), tuple(order_by))
+
+    def parse_set_expr(self):
+        left = self.parse_select_core()
+        while self.at_kw("union", "except", "intersect"):
+            op = self.next().value
+            if self.eat_kw("all"):
+                op += "_all"
+            elif self.eat_kw("distinct"):
+                pass
+            right = self.parse_select_core()
+            left = ast.SetOp(op, left, right)
+        return left
+
+    def parse_select_core(self):
+        if self.eat_op("("):
+            q = self.parse_set_expr()
+            self.expect_op(")")
+            return q
+        if self.at_kw("values"):
+            return self.parse_values()
+        self.expect_kw("select")
+        distinct = False
+        if self.eat_kw("distinct"):
+            distinct = True
+        elif self.eat_kw("all"):
+            pass
+        items = []
+        while True:
+            if self.at_op("*"):
+                self.next()
+                items.append(ast.SelectItem(ast.Star()))
+            elif (
+                self.peek().kind in ("IDENT",)
+                and self.peek(1).kind == "OP"
+                and self.peek(1).value == "."
+                and self.peek(2).kind == "OP"
+                and self.peek(2).value == "*"
+            ):
+                q = self.ident()
+                self.next()
+                self.next()
+                items.append(ast.SelectItem(ast.Star(qualifier=q)))
+            else:
+                e = self.parse_expr()
+                alias = None
+                if self.eat_kw("as"):
+                    alias = self.ident()
+                elif self.peek().kind == "IDENT":
+                    alias = self.ident()
+                items.append(ast.SelectItem(e, alias))
+            if not self.eat_op(","):
+                break
+        from_ = ()
+        if self.eat_kw("from"):
+            rels = [self.parse_table_factor_with_joins()]
+            while self.eat_op(","):
+                rels.append(self.parse_table_factor_with_joins())
+            from_ = tuple(rels)
+        where = self.parse_expr() if self.eat_kw("where") else None
+        group_by: tuple = ()
+        if self.eat_kw("group"):
+            self.expect_kw("by")
+            gb = [self.parse_expr()]
+            while self.eat_op(","):
+                gb.append(self.parse_expr())
+            group_by = tuple(gb)
+        having = self.parse_expr() if self.eat_kw("having") else None
+        return ast.Select(tuple(items), from_, where, group_by, having, distinct)
+
+    def parse_values(self):
+        self.expect_kw("values")
+        rows = []
+        while True:
+            self.expect_op("(")
+            row = []
+            while not self.at_op(")"):
+                row.append(self.parse_expr())
+                self.eat_op(",")
+            self.expect_op(")")
+            rows.append(tuple(row))
+            if not self.eat_op(","):
+                break
+        return ast.Values(tuple(rows))
+
+    def parse_table_factor_with_joins(self):
+        left = self.parse_table_factor()
+        while True:
+            kind = None
+            if self.eat_kw("cross"):
+                self.expect_kw("join")
+                kind = "cross"
+            elif self.at_kw("join"):
+                self.next()
+                kind = "inner"
+            elif self.at_kw("inner") and self.peek(1).value == "join":
+                self.next(); self.next()
+                kind = "inner"
+            elif self.at_kw("left", "right", "full"):
+                kind = self.next().value
+                self.eat_kw("outer")
+                self.expect_kw("join")
+            else:
+                break
+            right = self.parse_table_factor()
+            on = None
+            if kind != "cross":
+                self.expect_kw("on")
+                on = self.parse_expr()
+            left = ast.JoinClause(left, right, kind, on)
+        return left
+
+    def parse_table_factor(self):
+        if self.eat_op("("):
+            q = self.parse_query()
+            self.expect_op(")")
+            self.eat_kw("as")
+            alias = self.ident()
+            return ast.SubqueryRef(q, alias)
+        if self.peek().kind == "IDENT" and self.peek(1).kind == "OP" and self.peek(1).value == "(":
+            fname = self.ident()
+            self.next()
+            args = []
+            if not self.at_op(")"):
+                args.append(self.parse_expr())
+                while self.eat_op(","):
+                    args.append(self.parse_expr())
+            self.expect_op(")")
+            alias = None
+            if self.eat_kw("as"):
+                alias = self.ident()
+            elif self.peek().kind == "IDENT":
+                alias = self.ident()
+            return ast.TableFuncRef(fname, tuple(args), alias)
+        name = self.ident()
+        alias = None
+        if self.eat_kw("as"):
+            alias = self.ident()
+        elif self.peek().kind == "IDENT":
+            alias = self.ident()
+        return ast.TableRef(name, alias)
+
+    # -- expressions (precedence climbing) ---------------------------------------
+    def parse_expr(self):
+        return self.parse_or()
+
+    def parse_or(self):
+        left = self.parse_and()
+        while self.eat_kw("or"):
+            left = ast.BinaryOp("or", left, self.parse_and())
+        return left
+
+    def parse_and(self):
+        left = self.parse_not()
+        while self.eat_kw("and"):
+            left = ast.BinaryOp("and", left, self.parse_not())
+        return left
+
+    def parse_not(self):
+        if self.eat_kw("not"):
+            return ast.UnaryOp("not", self.parse_not())
+        return self.parse_comparison()
+
+    def parse_comparison(self):
+        left = self.parse_is_between_in()
+        t = self.peek()
+        if t.kind == "OP" and t.value in ("=", "<", ">", "<=", ">=", "<>", "!="):
+            self.next()
+            op = {"!=": "<>"}.get(t.value, t.value)
+            return ast.BinaryOp(op, left, self.parse_is_between_in())
+        if self.at_kw("like", "ilike"):
+            op = self.next().value
+            return ast.BinaryOp(op, left, self.parse_is_between_in())
+        if self.at_kw("not") and self.peek(1).value in ("like", "ilike"):
+            self.next()
+            op = "not_" + self.next().value
+            return ast.BinaryOp(op, left, self.parse_is_between_in())
+        return left
+
+    def parse_is_between_in(self):
+        left = self.parse_additive()
+        while True:
+            if self.eat_kw("is"):
+                negated = self.eat_kw("not")
+                self.expect_kw("null")
+                left = ast.IsNull(left, negated)
+            elif self.at_kw("between") or (
+                self.at_kw("not") and self.peek(1).value == "between"
+            ):
+                negated = self.eat_kw("not")
+                self.expect_kw("between")
+                low = self.parse_additive()
+                self.expect_kw("and")
+                high = self.parse_additive()
+                left = ast.Between(left, low, high, negated)
+            elif self.at_kw("in") or (self.at_kw("not") and self.peek(1).value == "in"):
+                negated = self.eat_kw("not")
+                self.expect_kw("in")
+                self.expect_op("(")
+                if self.at_kw("select"):
+                    q = self.parse_query()
+                    self.expect_op(")")
+                    left = ast.InList(left, (ast.Subquery(q),), negated)
+                else:
+                    items = [self.parse_expr()]
+                    while self.eat_op(","):
+                        items.append(self.parse_expr())
+                    self.expect_op(")")
+                    left = ast.InList(left, tuple(items), negated)
+            else:
+                return left
+
+    def parse_additive(self):
+        left = self.parse_multiplicative()
+        while True:
+            t = self.peek()
+            if t.kind == "OP" and t.value in ("+", "-", "||"):
+                self.next()
+                left = ast.BinaryOp(t.value, left, self.parse_multiplicative())
+            else:
+                return left
+
+    def parse_multiplicative(self):
+        left = self.parse_unary()
+        while True:
+            t = self.peek()
+            if t.kind == "OP" and t.value in ("*", "/", "%"):
+                self.next()
+                left = ast.BinaryOp(t.value, left, self.parse_unary())
+            else:
+                return left
+
+    def parse_unary(self):
+        if self.at_op("-"):
+            self.next()
+            return ast.UnaryOp("-", self.parse_unary())
+        if self.at_op("+"):
+            self.next()
+            return self.parse_unary()
+        return self.parse_cast_suffix()
+
+    def parse_cast_suffix(self):
+        e = self.parse_primary()
+        while True:
+            if self.at_op("::"):
+                self.next()
+                e = ast.Cast(e, self.parse_type_name())
+            elif self.at_op("->") or self.at_op("->>"):
+                op = self.next().value
+                e = ast.BinaryOp(op, e, self.parse_primary())
+            else:
+                return e
+
+    def parse_case(self):
+        self.expect_kw("case")
+        operand = None
+        if not self.at_kw("when"):
+            operand = self.parse_expr()
+        whens = []
+        while self.eat_kw("when"):
+            cond = self.parse_expr()
+            self.expect_kw("then")
+            res = self.parse_expr()
+            whens.append((cond, res))
+        else_ = None
+        if self.eat_kw("else"):
+            else_ = self.parse_expr()
+        self.expect_kw("end")
+        return ast.Case(operand, tuple(whens), else_)
+
+    def parse_primary(self):
+        t = self.peek()
+        if t.kind == "NUMBER":
+            self.next()
+            return ast.NumberLit(t.value)
+        if t.kind == "STRING":
+            self.next()
+            return ast.StringLit(t.value)
+        if self.at_kw("true"):
+            self.next()
+            return ast.BoolLit(True)
+        if self.at_kw("false"):
+            self.next()
+            return ast.BoolLit(False)
+        if self.at_kw("null"):
+            self.next()
+            return ast.NullLit()
+        if self.at_kw("date"):
+            self.next()
+            lit = self.next()
+            return ast.DateLit(lit.value)
+        if self.at_kw("interval"):
+            self.next()
+            lit = self.next()
+            if lit.kind != "STRING":
+                raise ParseError("INTERVAL requires a quoted string")
+            return ast.IntervalLit(lit.value)
+        if self.at_kw("cast"):
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            typ = self.parse_type_name()
+            self.expect_op(")")
+            return ast.Cast(e, typ)
+        if self.at_kw("case"):
+            return self.parse_case()
+        if self.peek().kind == "IDENT" and self.peek().value == "extract" and self.peek(1).value == "(":
+            self.next()
+            self.next()
+            fld = self.ident()
+            self.expect_kw("from")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return ast.FuncCall(f"extract_{fld}", (e,))
+        if self.at_kw("when"):
+            # only reachable from parse_case's operand-less form
+            raise ParseError("WHEN outside CASE")
+        if self.at_kw("exists"):
+            self.next()
+            self.expect_op("(")
+            q = self.parse_query()
+            self.expect_op(")")
+            return ast.Subquery(q, exists=True)
+        if self.at_op("("):
+            self.next()
+            if self.at_kw("select"):
+                q = self.parse_query()
+                self.expect_op(")")
+                return ast.Subquery(q)
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind == "PARAM":
+            self.next()
+            return ast.Param(int(t.value))
+        if t.kind in ("IDENT", "KW"):
+            name = self.ident()
+            if self.at_op("("):  # function call
+                self.next()
+                distinct = self.eat_kw("distinct")
+                if self.at_op("*"):
+                    self.next()
+                    self.expect_op(")")
+                    return ast.FuncCall(
+                        name, (), is_star=True, over=self.parse_over()
+                    )
+                args = []
+                if not self.at_op(")"):
+                    args.append(self.parse_expr())
+                    while self.eat_op(","):
+                        args.append(self.parse_expr())
+                self.expect_op(")")
+                return ast.FuncCall(name, tuple(args), distinct, over=self.parse_over())
+            if self.at_op(".") and self.peek(1).kind in ("IDENT", "KW"):
+                self.next()
+                col = self.ident()
+                return ast.Ident(col, qualifier=name)
+            return ast.Ident(name)
+        raise ParseError(f"unexpected token {t.value!r} in expression")
+
+
+def parse_statements(sql: str) -> list:
+    """Parse a ;-separated script."""
+    out = []
+    p = Parser(sql)
+    while p.peek().kind != "EOF":
+        out.append(p.parse_statement())
+        while p.eat_op(";"):
+            pass
+    return out
+
+
+def parse_statement(sql: str):
+    stmts = parse_statements(sql)
+    if len(stmts) != 1:
+        raise ParseError(f"expected exactly one statement, got {len(stmts)}")
+    return stmts[0]

@@ -1,1 +1,1 @@
-from .generator import AuctionGenerator, TpchGenerator, date_num  # noqa: F401
+from .generator import AuctionGenerator, CounterGenerator, TpchGenerator, date_num  # noqa: F401

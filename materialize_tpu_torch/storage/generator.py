@@ -1,7 +1,7 @@
 """Deterministic load generators: the auction stream and TPC-H with RF1/RF2.
 
 Counterpart of materialize_tpu/storage/generator.py (`AuctionGenerator`,
-`TpchGenerator` and `date_num`). The numpy draws are the reference's, in
+`CounterGenerator`, `TpchGenerator` and `date_num`). The numpy draws are the reference's, in
 the same order, so the same seed yields the same rows; batches land on the
 requested device as port `UpdateBatch`es. Money is fixed-point cents; dates
 are day numbers.
@@ -95,14 +95,39 @@ class AuctionGenerator:
         }
 
 
+class CounterGenerator:
+    """COUNTER load generator: emits 1, 2, 3, ...; with max_cardinality,
+    value v - max is retracted when v is emitted."""
+
+    ROW_BYTES = 24  # one i64 col + time/diff
+
+    def __init__(self, max_cardinality: int | None = None, device="cuda"):
+        self.max_cardinality = max_cardinality
+        self.next = 1
+        self.device = device
+
+    def next_tick(self, tick: int, n_rows: int = 1) -> dict[str, UpdateBatch]:
+        vals = np.arange(self.next, self.next + n_rows, dtype=np.int64)
+        self.next += n_rows
+        diffs = np.ones(n_rows, dtype=np.int64)
+        if self.max_cardinality is not None:
+            dead = vals - self.max_cardinality
+            keep = dead >= 1
+            vals = np.concatenate([vals, dead[keep]])
+            diffs = np.concatenate([diffs, -np.ones(int(keep.sum()), dtype=np.int64)])
+        n = len(vals)
+        return {
+            "counter": UpdateBatch.build((), (vals,), np.full(n, tick), diffs,
+                                         device=self.device)
+        }
+
+
 def date_num(y: int, m: int, d: int) -> int:
     """Days since 1992-01-01 (TPC-H epoch)."""
     return (np.datetime64(f"{y:04d}-{m:02d}-{d:02d}") - np.datetime64("1992-01-01")).astype(int)
 
 
-# c_mktsegment codes: indices into AUTOMOBILE, BUILDING, FURNITURE,
-# HOUSEHOLD, MACHINERY
-_SEGMENT_CODES = np.arange(5, dtype=np.int64)
+_SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"]
 
 
 @dataclass
@@ -120,7 +145,8 @@ class TpchGenerator:
     per order. Money is fixed-point cents; dates are day numbers (date_num).
     """
 
-    def __init__(self, sf: float = 0.01, seed: int = 0, val_dtype=np.int64, device="cuda"):
+    def __init__(self, sf: float = 0.01, seed: int = 0, segment_codes=None,
+                 val_dtype=np.int64, device="cuda"):
         self.sf = sf
         self.device = device
         # Device-batch value dtype: int64, or int32 (every TPC-H column fits:
@@ -129,6 +155,13 @@ class TpchGenerator:
         # int64; the cast happens at batch build.
         self.val_dtype = np.dtype(val_dtype)
         self.rng = np.random.default_rng(seed)
+        # c_mktsegment: raw 0..4 indices into _SEGMENTS by default; a caller
+        # with a string dictionary passes its codes so SQL 'BUILDING' matches
+        self.segment_codes = (
+            np.asarray(segment_codes, dtype=np.int64)
+            if segment_codes is not None
+            else np.arange(5, dtype=np.int64)
+        )
         self.n_customer = max(int(150_000 * sf), 10)
         self.n_orders = max(int(1_500_000 * sf), 20)
         self.n_part = max(int(200_000 * sf), 10)
@@ -141,7 +174,7 @@ class TpchGenerator:
     def initial(self) -> TpchTables:
         rng = np.random.default_rng(12345)
         custkey = np.arange(self.n_customer, dtype=np.int64)
-        mktsegment = _SEGMENT_CODES[rng.integers(0, 5, self.n_customer)]
+        mktsegment = self.segment_codes[rng.integers(0, 5, self.n_customer)]
         nationkey = rng.integers(0, 25, self.n_customer).astype(np.int64)
 
         orderkey = np.arange(self.n_orders, dtype=np.int64)

@@ -198,11 +198,15 @@ def test_node_case_byte_identical(case):
 
 
 def test_every_node_kind_is_covered():
+    from materialize_tpu_torch.arrangement.trace_manager import TraceManager
+
     kinds = set()
     for desc_fn, _t, _c in OPS.CASES.values():
-        df = TR.render_dataflow(desc_fn(), device="cpu")
-        kinds |= {type(n).__name__ for _o, ops, _r in df.builds for n, _i in ops}
+        for traces in (None, TraceManager()):  # private and shared arrangements
+            df = TR.render_dataflow(desc_fn(), traces=traces, trace_reader="r", device="cpu")
+            kinds |= {type(n).__name__ for _o, ops, _r in df.builds for n, _i in ops}
     kinds.add("DeltaJoinNode")  # Q3, below
+    kinds.add("SharedReduceNode")  # tests/test_torch_trace_manager.py
     assert kinds == {c.__name__ for c in TR.Node.__subclasses__()}
 
 
@@ -243,8 +247,8 @@ def test_q3_default_renderer_byte_identical_and_oracle():
 
 def test_render_dataflow_refuses_what_is_not_ported():
     desc = OPS.relational_desc()
-    with pytest.raises(NotImplementedError, match="trace_manager"):
-        TR.render_dataflow(desc, traces=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh mode"):
+        TR.render_dataflow(desc, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh mode"):
         TR.render_dataflow(desc, exchange_backend="device", device="cpu")
     with pytest.raises(NotImplementedError, match="netexchange"):
