@@ -11,8 +11,9 @@ machine with one card), whose exchange runs the `route_dest` and
 fused renderer (dataflow/fused.py); and, through `render_dataflow`'s
 default, the host-orchestrated renderer (dataflow/runtime.py `Dataflow`):
 Q3 at SF1, the auction views with a sliding window and a window function,
-and every node kind of that renderer. Phases, each of which fails the run
-on any error:
+and every node kind of that renderer; SQL through the port's Coordinator;
+and the fused renderer's mesh mode, the auction views and a SQL view on 4
+workers. Phases, each of which fails the run on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the kernels from materialize_tpu_torch/csrc/;
@@ -87,6 +88,26 @@ on any error:
    read just after: `probe`, `multi_take` and `run_sum` must launch
    (`probe2` where the plan merges spines), and each launched kernel is
    replayed at its largest call against its plain version (exact);
+13. the fused renderer's mesh mode on 4 workers (all on `cuda:0` on a
+   machine with one card): (a) configs 1, 2 and 4 through
+   `FusedDataflow(mesh=make_mesh(4))` at phase 7's data and ticks, at
+   `mesh_auction_caps()` (per-worker capacities), with phase 7's checks,
+   and all six kernels must launch in the timed ticks (`route_dest` and
+   `bucket_rank` in the exchanges) and equal their plain versions at their
+   largest calls; the exchange metrics (`mzt_device_exchange_*`) printed;
+   (b) `Coordinator(mesh=make_mesh(4))` with the fused renderer over the
+   auction source (64 `advance(n_rows=65536)` ticks, 2^22 bids), the
+   README's `totals` view on 4 workers, then `exchange_backend = 'host'`
+   and the same view again on one; one warm-up and five timed ticks with
+   the launch counters zeroed just before and read just after, all six
+   kernels launched and replayed at their largest calls. Phase 13 runs
+   last, in a child process of its own (`chip_smoke.py --mesh-phase`),
+   after phase 8's checks have released the earlier phases' dataflows:
+   its views need the card's memory as phase 7's do. It does its timings
+   first, then two profiled ticks of each 13a config and of 13b (device
+   time by kernel, idle share) and its checks: each 13a view against its
+   NumPy oracle and equal to phase 7's view of the same config, both 13b
+   views against a NumPy oracle;
 8. the profiler, after every CUDA-event timing (a profiler session can
    slow the process's later launches): each kernel's and library call's
    device time at its largest call (`kernel_device_ms`,
@@ -106,20 +127,25 @@ on any error:
    `SELECT * FROM totals ORDER BY total DESC LIMIT 5` against NumPy
    oracles over every generated bid and auction.
 
-Phase 8 runs last, after phases 9 to 12, so that every CUDA-event timing
-precedes the first profiler session.
+Phase 8 runs after phases 9 to 12, so that every CUDA-event timing
+precedes the first profiler session of the process; phase 13 follows.
 
 It prints one JSON line a path (`q3`, `q3_sharded`, one `auction` line a
 config, `q3_host`, `auction_host`, `node_cases`, `sql_q3`,
-`sql_auction`), the card's name and power limit, the kernel table as one JSON
-line, then the device line as the last line. It exits non-zero, printing
+`sql_auction`, one `auction_mesh` line a config, `sql_mesh`), the card's
+name and power limit, the kernel table as one JSON line (each kernel's
+launches and largest calls per phase, phase 13's under `fused_mesh` and
+`sql_mesh`), then the device line as the last line. It exits non-zero, printing
 no result, without a CUDA device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1107,6 +1133,30 @@ def auction_caps():
                      join_out=2 * delta, gather=1 << 21)
 
 
+def mesh_auction_caps():
+    """Phase 13a's per-worker FusedCaps: auction_caps() with a quarter of
+    the delta (the global delta, 4 x the per-worker one, takes a tick's
+    65,536 bids), buckets of one worker's delta (bucket 0), which no
+    worker's send can overflow, and a quarter of every state capacity but
+    the arrangements', which get half. At a quarter an arrangement's level
+    0 would hold exactly 8 per-worker deltas, and the exchange splits a
+    tick's bids by key hash, not exactly: a worker that receives more than
+    its quarter over 8 ticks would overflow it."""
+    caps = auction_caps()
+    return dataclasses.replace(
+        caps, delta=caps.delta // N_WORKERS, arrangement=2 * caps.arrangement // N_WORKERS,
+        groups=caps.groups // N_WORKERS, join_out=caps.join_out // N_WORKERS,
+        gather=caps.gather // N_WORKERS, bucket=0)
+
+
+def exchange_metrics() -> dict:
+    """The mzt_device_exchange_* samples of the port's metrics registry."""
+    from materialize_tpu_torch.obs import REGISTRY
+
+    return {f"{fam.name}{dict(labels) or ''}": v for fam in REGISTRY.families()
+            if fam.name.startswith("mzt_device_exchange_") for labels, v in fam.samples}
+
+
 AUCTION_INDEX = {"bids_sum_count": "idx_bids_sum", "auctions_join_bids": "idx_join",
                  "max_bid_per_auction": "idx_topk"}
 
@@ -1156,7 +1206,13 @@ def auction_oracle_check(config: str, df, gen) -> dict:
         how = "numpy columns of the index"
     if got != want:
         raise AssertionError(f"{config}: view differs from its oracle")
-    return {"rows": len(got) if how == "peek" else want[0], "compared": how}
+    # a digest of the view, to hold one path's view against another's
+    if how == "peek":
+        digest = hashlib.sha256(repr(got).encode()).hexdigest()
+    else:
+        order = np.argsort(got_cols[4], kind="stable")
+        digest = hashlib.sha256(b"".join(c[order].tobytes() for c in got_cols)).hexdigest()
+    return {"rows": len(got) if how == "peek" else want[0], "compared": how, "digest": digest}
 
 
 def fit_index(df) -> tuple:
@@ -1180,7 +1236,25 @@ def fit_index(df) -> tuple:
     return reads, time.perf_counter() - t0
 
 
-def run_auction(config: str, device) -> dict:
+def fit_views(coord) -> tuple:
+    """`fit_index` for every dataflow of the coordinator `coord`, and the
+    same for each view's storage collection, where a fused view appends its
+    full-capacity output batches too (and the sink's periodic self-check
+    consolidates both whole); returns (reads, seconds) as fit_index does."""
+    reads, secs = 0, 0.0
+    for gid, df, _srcs in coord.dataflows:
+        r, t = fit_index(df)
+        store = coord.storage.get(gid)
+        t0 = time.perf_counter()
+        if store is not None:
+            r += len(store.arr.batches)
+            store.arr.rebucket()
+        torch.cuda.synchronize()
+        reads, secs = reads + r, secs + t + time.perf_counter() - t0
+    return reads, secs
+
+
+def run_auction(config: str, device, mesh=None) -> dict:
     """Config `config` of models/auction.py through FusedDataflow: hydrate
     (AUCTION_HYDRATE ticks), one warm-up tick, AUCTION_TICKS timed churn
     ticks with the launch counters zeroed just before and read just after,
@@ -1188,8 +1262,13 @@ def run_auction(config: str, device) -> dict:
     its plain version (exact) and timed there. Config 4's index spine is
     rebucketed after every tick (`fit_index`): its time is inside the
     ticks' wall and reported as a share of it, its reads apart from the
-    renderer's host syncs. Returns the numbers and the
-    closures of the profiled ticks and of the oracle check."""
+    renderer's host syncs. With `mesh` (phase 13a) the dataflow runs on its
+    workers at `mesh_auction_caps()`, `route_dest` and `bucket_rank` (the
+    exchange) must launch too, and every config's index spine is
+    rebucketed: a mesh tick's output joins the workers' full-capacity
+    batches, 4 x a single tick's (phase 7 keeps its configs 1 and 2
+    spines as they are). Returns the numbers and the closures of the
+    profiled ticks and of the oracle check."""
     from materialize_tpu_torch.dataflow.fused import FusedDataflow
     from materialize_tpu_torch.models import auction
     from materialize_tpu_torch.ops.kernels import registry
@@ -1198,12 +1277,14 @@ def run_auction(config: str, device) -> dict:
 
     desc = getattr(auction, config)()
     sources = tuple(desc.source_imports)
-    caps = auction_caps()
+    caps = auction_caps() if mesh is None else mesh_auction_caps()
+    path = SINGLE_PATH if mesh is None else registry.KERNELS
+    label = f"auction {config}" if mesh is None else f"mesh auction {config}"
     gen = AuctionGenerator(AUCTION_SEED, AUCTION_NEW, device=device, keep_host=True)
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    df = FusedDataflow(desc, caps, device=device)
-    fit = config == "max_bid_per_auction"
+    df = FusedDataflow(desc, caps, mesh=mesh, device=device)
+    fit = config == "max_bid_per_auction" or mesh is not None
     fitted = [0, 0.0]  # fit_index's host reads and seconds
 
     def inputs(tick):
@@ -1217,7 +1298,7 @@ def run_auction(config: str, device) -> dict:
             fitted[0] += reads
             fitted[1] += secs
 
-    phase(f"auction {config}: caps {caps}")
+    phase(f"{label}: caps {caps}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for tick in range(1, AUCTION_HYDRATE + 1):
@@ -1230,7 +1311,7 @@ def run_auction(config: str, device) -> dict:
     later = [(tk, inputs(tk)) for tk in range(warm + 1, warm + 1 + AUCTION_TICKS + PROFILED_TICKS)]
     rows = AUCTION_BIDS + (AUCTION_NEW if "auctions" in sources else 0)
     torch.cuda.synchronize()
-    phase(f"auction {config}: hydrated {AUCTION_HYDRATE} ticks in {hydrate_s:.2f}s "
+    phase(f"{label}: hydrated {AUCTION_HYDRATE} ticks in {hydrate_s:.2f}s "
           f"({hydrate_retries} retries), warm-up tick {warm} done")
 
     retries0 = df.retries
@@ -1248,13 +1329,13 @@ def run_auction(config: str, device) -> dict:
     samples, registry.SAMPLES = registry.SAMPLES, None
     syncs = df.host_syncs + HOST_SYNCS["lookup_widen"] - syncs0
     if df.retries != retries0:
-        raise AssertionError(f"auction {config}: an overflow retry in the timed ticks")
-    missing = [k for k in SINGLE_PATH if launches[k] <= 0]
+        raise AssertionError(f"{label}: an overflow retry in the timed ticks")
+    missing = [k for k in path if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"auction {config}: kernels not launched: {missing}")
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
     timed = [tk for tk, _b in later[:AUCTION_TICKS]]
     kernels = {}
-    for k in SINGLE_PATH:
+    for k in path:
         shape, (kern, _plain, _library, moved), err = check_largest(k, samples)
         kernels[k] = {"launches": launches[k], "shape": list(shape), "max_abs_err": err,
                       "ms": time_ms(kern), "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
@@ -1262,6 +1343,7 @@ def run_auction(config: str, device) -> dict:
     info = df.arrangement_info()
     out = {
         "config": config, "caps": dataclasses.asdict(caps), "sources": list(sources),
+        "workers": None if mesh is None else [str(d) for d in mesh],
         "hydrate_ticks": AUCTION_HYDRATE, "hydrate_s": hydrate_s,
         "hydrate_retries": hydrate_retries, "timed_ticks": timed,
         "updates": rows * AUCTION_TICKS, "seconds": elapsed,
@@ -1278,7 +1360,10 @@ def run_auction(config: str, device) -> dict:
         "peak_mem_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30,
         "kernels": kernels,
     }
-    phase(f"auction {config}: {out['updates']} updates in {elapsed:.4f}s over "
+    if mesh is not None:
+        out["exchange_metrics"] = exchange_metrics()
+        phase(f"{label}: {out['exchange_metrics']}")
+    phase(f"{label}: {out['updates']} updates in {elapsed:.4f}s over "
           f"{AUCTION_TICKS} ticks = {out['updates_per_s']:.1f} updates/s; "
           f"{out['host_syncs_per_tick']} host syncs per tick; fit_index "
           f"{out['fit_index_share']:.4f} of the wall, {out['fit_index_reads_per_tick']} reads "
@@ -1286,7 +1371,7 @@ def run_auction(config: str, device) -> dict:
           f"state {out['state_bytes']} B, index {out['index_bytes']} B; "
           f"peak {out['peak_mem_gib']:.2f} GiB; launches {launches}")
     for k, row in kernels.items():
-        phase(f"auction {config}: {k} equals its plain version at its largest call "
+        phase(f"{label}: {k} equals its plain version at its largest call "
               f"{row['shape']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
 
     def profiled_ticks() -> dict:
@@ -1306,7 +1391,7 @@ def run_auction(config: str, device) -> dict:
         finally:
             mzt_profiler.configure(False)
         if df.retries != retries0:
-            raise AssertionError(f"auction {config}: an overflow retry in the profiled ticks")
+            raise AssertionError(f"{label}: an overflow retry in the profiled ticks")
         from torch.autograd import DeviceType
 
         nodes: dict = {}
@@ -1785,16 +1870,23 @@ SQL_AUCTION_VIEWS = {
 SQL_TIMED = 5  # timed advance() ticks of each SQL phase, after one warm-up tick
 
 
-def sql_kernel_rows(samples: dict, launches: dict, what: str) -> dict:
-    """As host_kernel_rows, for a SQL phase: `probe`, `multi_take` and
-    `run_sum` must launch in the timed ticks, `probe2` only if the plan
-    merged spines there; each launched kernel's largest call is replayed
-    against its plain version (exact) and timed."""
-    missing = [k for k in ("probe", "multi_take", "run_sum") if launches[k] <= 0]
+SQL_REQUIRED = ("probe", "multi_take", "run_sum")
+
+
+def sql_kernel_rows(samples: dict, launches: dict, what: str,
+                    required: tuple = SQL_REQUIRED) -> dict:
+    """As host_kernel_rows, for a SQL phase: the `required` kernels must
+    launch in the timed ticks, `probe2` only if the plan merged spines there
+    (and `route_dest` and `bucket_rank` only on a mesh); each launched
+    kernel's largest call is replayed against its plain version (exact) and
+    timed."""
+    from materialize_tpu_torch.ops.kernels import registry
+
+    missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels not launched: {missing}")
     rows = {}
-    for k in SINGLE_PATH:
+    for k in registry.KERNELS:
         if launches[k] <= 0:
             rows[k] = {"launches": 0}
             continue
@@ -1831,35 +1923,46 @@ def _timed_sources(coord) -> list:
     return spent
 
 
-def _dataflow_s(coord) -> float:
-    """Seconds the coordinator's dataflows have spent in `step` so far (its
-    per-dataflow tick histogram, mzt_dataflow_tick_duration_ns)."""
+def _dataflow_s(coord) -> dict:
+    """Seconds each of the coordinator's dataflows has spent in `step` so
+    far, by its id (its tick histogram, mzt_dataflow_tick_duration_ns)."""
     from materialize_tpu_torch.adapter.coordinator import _TICK_NS
 
-    total = 0.0
+    out = {}
     for gid, _df, _srcs in coord.dataflows:
         v = _TICK_NS.value(dataflow=gid)
-        total += v[1] if v else 0.0
-    return total / 1e9
+        out[gid] = (v[1] if v else 0.0) / 1e9
+    return out
 
 
-def timed_advances(coord, what: str, n_rows: int | None = None) -> dict:
+def timed_advances(coord, what: str, n_rows: int | None = None,
+                   required: tuple = SQL_REQUIRED, after=None) -> dict:
     """One warm-up advance(), then SQL_TIMED timed ones with the launch
     counters zeroed just before and read just after: updates/s (the rows
     the sources committed over the synchronized wall time), host syncs a
     tick, the sources' share of the wall (the generators making their
-    batches on the host) and the dataflows' (their `step` calls), and the
-    kernel replays."""
+    batches on the host) and the dataflows' (their `step` calls, also by
+    dataflow id), and the kernel replays. `after(coord)`, when given, runs
+    after every tick (harness work such as `fit_views`, which returns its
+    reads and seconds): its share of the timed wall and its reads are
+    reported apart."""
     from materialize_tpu_torch.ops.kernels import registry
 
+    fitted = [0, 0.0]
+
     def tick():
-        return coord.advance(n_rows) if n_rows is not None else coord.advance()
+        coord.advance(n_rows) if n_rows is not None else coord.advance()
+        if after is not None:
+            reads, secs = after(coord)
+            fitted[0] += reads
+            fitted[1] += secs
 
     tick()
     torch.cuda.synchronize()
     registry.reset_launches()
     registry.SAMPLES = {}
     syncs0, rec0, df0 = host_syncs(), _source_records(coord), _dataflow_s(coord)
+    fit0 = list(fitted)
     source_s = _timed_sources(coord)
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -1870,17 +1973,23 @@ def timed_advances(coord, what: str, n_rows: int | None = None) -> dict:
     launches = dict(registry.LAUNCHES)
     samples, registry.SAMPLES = registry.SAMPLES, None
     updates = _source_records(coord) - rec0
+    df1 = _dataflow_s(coord)
+    by_df = {gid: (df1[gid] - df0.get(gid, 0.0)) / elapsed for gid in df1}
     out = {"ticks": SQL_TIMED, "updates": updates, "seconds": elapsed,
            "updates_per_s": updates / elapsed,
            "host_syncs_per_tick": (host_syncs() - syncs0) / SQL_TIMED,
            "source_share": source_s[0] / elapsed,
-           "dataflow_share": (_dataflow_s(coord) - df0) / elapsed, "launches": launches}
+           "dataflow_share": sum(by_df.values()), "dataflow_share_by_id": by_df,
+           "launches": launches}
+    if after is not None:
+        out["fit_share"] = (fitted[1] - fit0[1]) / elapsed
+        out["fit_reads_per_tick"] = (fitted[0] - fit0[0]) / SQL_TIMED
     phase(f"{what}: {updates} updates in {elapsed:.4f}s over {SQL_TIMED} advance() ticks = "
           f"{out['updates_per_s']:.1f} updates/s; {out['host_syncs_per_tick']} host syncs per "
           f"tick; of the wall, the sources' batch making {out['source_share']:.1%} and the "
           f"dataflows' steps {out['dataflow_share']:.1%}; "
           f"launches {launches}")
-    out["kernels"] = sql_kernel_rows(samples, launches, what)
+    out["kernels"] = sql_kernel_rows(samples, launches, what, required)
     return out
 
 
@@ -2019,10 +2128,142 @@ def run_sql_auction(device) -> dict:
     return out
 
 
+def run_sql_mesh(device) -> dict:
+    """Phase 13b: the README's `totals` view through
+    Coordinator(mesh=make_mesh(4)) with the fused renderer, over the
+    auction source: `totals` rendered on the 4 workers (exchange_backend
+    'auto' with a mesh), then exchange_backend = 'host' and the same view
+    again as `totals_host`, on one worker; then 64 advance(n_rows=65536)
+    ticks (2^22 bids) through both, a warm-up and the timed ticks, then the
+    profiled ticks and both views against a NumPy oracle over the
+    generator's rows (closures). Every tick is followed by `fit_views`,
+    timed apart. The views come before the data: hydrated
+    from a 2^22-row snapshot, a fused view keeps a delta capacity of 2^22
+    rows (2^20 a worker), and every later tick's output would join 4
+    workers' 2^23-row batches in its index spine."""
+    from materialize_tpu_torch.adapter import Coordinator
+    from materialize_tpu_torch.dataflow.fused import FusedDataflow
+    from materialize_tpu_torch.ops.kernels import registry
+    from materialize_tpu_torch.parallel.mesh import make_mesh
+
+    coord = Coordinator(mesh=make_mesh(N_WORKERS), device=device)
+    coord.execute("ALTER SYSTEM SET enable_fused_render = true")
+    coord.execute("CREATE SOURCE auction_house FROM LOAD GENERATOR AUCTION")
+    gen = next(g for g, gids in coord.generators if "bids" in gids)
+    gen.host = {"auctions": [], "bids": []}  # keep every tick's rows for the oracle
+    totals = SQL_AUCTION_VIEWS["totals"]
+    views = {"totals": totals, "totals_host": totals.replace("VIEW totals", "VIEW totals_host")}
+    view_s, shards, gids = {}, {}, {}
+    for name, sql in views.items():
+        if name == "totals_host":
+            coord.execute("ALTER SYSTEM SET exchange_backend = 'host'")
+        t0 = time.perf_counter()
+        coord.execute(sql)
+        torch.cuda.synchronize()
+        view_s[name] = time.perf_counter() - t0
+        gid, df, _srcs = coord.dataflows[-1]
+        if not isinstance(df, FusedDataflow):
+            raise AssertionError(f"sql mesh: {name} rendered as {type(df).__name__}")
+        shards[name], gids[name] = df.n_shards, gid
+    if shards != {"totals": N_WORKERS, "totals_host": 1}:
+        raise AssertionError(f"sql mesh: workers per view {shards}")
+    t0 = time.perf_counter()
+    for _ in range(AUCTION_HYDRATE):
+        coord.advance(AUCTION_BIDS)
+        fit_views(coord)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    phase(f"sql mesh: views rendered in {view_s}, workers per view {shards}; "
+          f"{AUCTION_HYDRATE} ticks through both in {ingest_s:.2f}s")
+
+    out = {"bids_per_tick": AUCTION_BIDS, "ingest_s": ingest_s, "view_s": view_s,
+           "workers": shards,
+           **timed_advances(coord, "sql mesh", AUCTION_BIDS, registry.KERNELS, fit_views)}
+    out["view_step_share"] = {name: out["dataflow_share_by_id"][gid]
+                              for name, gid in gids.items()}
+    out["exchange_metrics"] = exchange_metrics()
+    phase(f"sql mesh: each view's steps' share of the timed wall {out['view_step_share']}; "
+          f"fit_views {out['fit_share']:.4f} of the wall, {out['fit_reads_per_tick']} reads "
+          f"per tick; {out['exchange_metrics']}")
+
+    def profiled() -> dict:
+        def run():
+            for _ in range(PROFILED_TICKS):
+                coord.advance(AUCTION_BIDS)
+                fit_views(coord)
+        return {"profile": profile_host_ticks(run)}
+
+    def check() -> dict:
+        bids = [np.concatenate(c) for c in zip(*gen.host["bids"])]
+        keys, inv = np.unique(bids[2], return_inverse=True)
+        total = np.bincount(inv, weights=bids[3].astype(np.float64)).astype(np.int64)
+        want = sorted(zip(keys.tolist(), total.tolist(), np.bincount(inv).tolist()))
+        for name in views:
+            if sorted(coord.execute(f"SELECT * FROM {name}").rows) != want:
+                raise AssertionError(f"sql mesh: {name} differs from its oracle")
+        return {name: len(want) for name in views}
+
+    out["profiled_ticks"], out["check"] = profiled, check
+    return out
+
+
+MESH_RESULT = "phase 13 result: "
+
+
+def mesh_phase() -> dict:
+    """Phase 13 (the child process's work): 13a's three configs and 13b,
+    every timing first, then the profiled ticks and the checks."""
+    from materialize_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_auctions = {config: run_auction(config, "cuda", mesh=make_mesh(N_WORKERS))
+                     for config in AUCTION_CONFIGS}
+    sqm = run_sql_mesh("cuda")
+    for config, au in mesh_auctions.items():
+        au.update(au.pop("profiled_ticks")())
+        au["view"] = au.pop("check")()
+        phase(f"mesh auction {config}: view equals its oracle ({au['view']}); profile "
+              f"{json.dumps(au['profile'])}")
+    sqm.update(sqm.pop("profiled_ticks")())
+    sqm["view"] = sqm.pop("check")()
+    phase(f"sql mesh: views equal their oracle ({sqm['view']}); profile "
+          f"{json.dumps(sqm['profile'])}")
+    return {"auction_mesh": mesh_auctions, "sql_mesh": sqm}
+
+
+def run_mesh_child() -> dict:
+    """Run phase 13 as `chip_smoke.py --mesh-phase` in a child process, its
+    lines echoed here, and return its result; raise if it failed. The
+    earlier phases keep their dataflows until their profiled ticks at the
+    end, and the mesh views need the card's memory as phase 7's do."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-phase"],
+                            stdout=subprocess.PIPE, text=True)
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(MESH_RESULT):
+                result = json.loads(line[len(MESH_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or result is None:
+        raise AssertionError(f"phase 13's process failed (rc {rc})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--mesh-phase"]:
+        from materialize_tpu_torch.ops.kernels import registry
+
+        registry.build_all()
+        print(MESH_RESULT + json.dumps(mesh_phase()), flush=True)
+        return 0
     from materialize_tpu_torch.models.fused_q3 import read_view
     from materialize_tpu_torch.models.tpch import q3_oracle
     from materialize_tpu_torch.ops.kernels import registry
@@ -2134,6 +2375,18 @@ def main() -> int:
         host["view"] = host.pop("check")()
         phase(f"{label}: views equal their oracles ({host['view']}); profile "
               f"{json.dumps(host['profile'])}")
+    # every earlier phase's dataflows went with its closures: phase 13 gets
+    # the card's memory in a process of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"phase 13 in a process of its own; this one holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    mesh = run_mesh_child()
+    mesh_auctions, sqm = mesh["auction_mesh"], mesh["sql_mesh"]
+    for config, au in mesh_auctions.items():
+        if au["view"]["digest"] != auctions[config]["view"]["digest"]:
+            raise AssertionError(f"mesh auction {config}: view differs from phase 7's")
+        phase(f"mesh auction {config}: view equals phase 7's")
     rows += sh_rows
     for row in rows:
         row["launches_sharded"] = sh_launches[row["name"]]
@@ -2144,6 +2397,9 @@ def main() -> int:
         row["node_cases_launches"] = nodes["launches"][row["name"]]
         row["sql_q3"] = sq3["kernels"].get(row["name"], {"launches": 0})
         row["sql_auction"] = sau["kernels"].get(row["name"], {"launches": 0})
+        row["fused_mesh"] = {config: au["kernels"].get(row["name"], {"launches": 0})
+                             for config, au in mesh_auctions.items()}
+        row["sql_mesh"] = sqm["kernels"].get(row["name"], {"launches": 0})
 
     print(json.dumps({"q3": {
         "sf": 1.0, "ticks": q3["ticks"], "frac": 0.02, "scale": q3["scale"],
@@ -2170,6 +2426,9 @@ def main() -> int:
     print(json.dumps({"node_cases": nodes}))
     print(json.dumps({"sql_q3": sq3}))
     print(json.dumps({"sql_auction": sau}))
+    for au in mesh_auctions.values():
+        print(json.dumps({"auction_mesh": au}))
+    print(json.dumps({"sql_mesh": sqm}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

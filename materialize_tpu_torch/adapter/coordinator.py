@@ -7,14 +7,15 @@ dataflow, and materialized views install continuously maintained
 dataflows (rendered by `dataflow.runtime.render_dataflow` with the shared
 arrangements of `arrangement/trace_manager.py`) whose outputs feed storage
 collections. Every collection, arrangement and dataflow lives on the
-coordinator's `device` ("cuda" unless the caller asks for "cpu").
+coordinator's `device` ("cuda" unless the caller asks for "cpu"). With
+`mesh` (a tuple of worker devices, parallel/mesh.py), fused dataflows run
+sharded over its workers, as the `exchange_backend` setting decides.
 
 Not ported yet, each raising NotImplementedError that names its module:
 durability (`data_dir`, `blob`, `consensus`, `preflight`, `checkpoint`,
 `catch_up`, `promote`: persist/), SUBSCRIBE and CREATE SINK (egress/),
 CREATE SOURCE ... FROM FILE (storage/file_source.py), LOAD GENERATOR KEY
 VALUE (storage/upsert.py), compute replicas (cluster/, orchestrator/),
-`mesh=` and `exchange_backend = 'device'` (FusedDataflow's mesh mode),
 the mz_* relations (adapter/introspection.py), and the JAX-only settings
 (`kernel_backend` other than its default, `enable_jax_profiler`,
 `jax_profiler_dir`).
@@ -57,11 +58,9 @@ _TICK_NS = REGISTRY.histogram(
 )
 
 
-# the values the reference accepts for its backend settings (its kernel
-# registry's and device mesh's modes); the port runs only the first of
-# kernel_backend's and the host exchange
+# the values the reference accepts for its kernel registry's setting; the
+# port runs only the first
 _KERNEL_MODES = ("auto", "xla", "pallas")
-_EXCHANGE_MODES = ("auto", "host", "device")
 
 
 class TimestampOracle:
@@ -132,9 +131,9 @@ class Coordinator:
         if data_dir is not None or blob is not None or consensus is not None or preflight:
             raise _not_ported("a durable Coordinator (data_dir, blob, consensus, preflight)",
                               "persist/")
-        if mesh is not None:
-            raise _not_ported("Coordinator(mesh=...)", "FusedDataflow's mesh mode "
-                              "(dataflow/fused.py, parallel/devicemesh)")
+        # with `mesh`, fused dataflows run sharded over its workers (per
+        # exchange_backend, read at each render)
+        self.mesh = mesh
         self.device = device
         self.catalog = Catalog()
         self.oracle = TimestampOracle()
@@ -305,14 +304,13 @@ class Coordinator:
                     raise _not_ported(f"kernel_backend = {stmt.value!r}",
                                       "the JAX package's kernel registry")
             elif stmt.name == "exchange_backend":
-                if str(stmt.value) not in _EXCHANGE_MODES:
+                from ..parallel.devicemesh import EXCHANGE_MODES
+
+                if str(stmt.value) not in EXCHANGE_MODES:
                     raise PlanError(
                         f"invalid value for exchange_backend: {stmt.value!r} "
-                        f"(expected one of {', '.join(_EXCHANGE_MODES)})"
+                        f"(expected one of {', '.join(EXCHANGE_MODES)})"
                     )
-                if str(stmt.value) == "device":
-                    raise _not_ported("exchange_backend = 'device'",
-                                      "FusedDataflow's mesh mode (dataflow/fused.py)")
             elif stmt.name in ("enable_jax_profiler", "jax_profiler_dir"):
                 raise _not_ported(f"SET {stmt.name}", "the JAX package's profiler "
                                   "(obs/profiler.py there)")
@@ -621,8 +619,9 @@ class Coordinator:
 
     def _make_dataflow(self, desc, snaps: dict | None = None, trace_reader=None):
         """Render a DataflowDescription through the shared rendering decision
-        point (`runtime.render_dataflow`): the fused single-program path when
-        enabled and expressible, else the host-orchestrated operator graph."""
+        point (`runtime.render_dataflow`): the fused path when enabled and
+        expressible, over the worker mesh as `exchange_backend` decides,
+        else the host-orchestrated operator graph."""
         from ..dataflow.fused import FusedCaps
         from ..dataflow.runtime import render_dataflow
 
@@ -637,6 +636,7 @@ class Coordinator:
             desc,
             fused=bool(self.configs.get("enable_fused_render")),
             exchange_backend=str(self.configs.get("exchange_backend")),
+            mesh=self.mesh,
             caps=caps,
             traces=self._traces() if trace_reader is not None else None,
             trace_reader=trace_reader,

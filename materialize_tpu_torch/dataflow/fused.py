@@ -22,13 +22,19 @@ doubled capacities when a flag trips, so results are never lossy.
 Constructs the fused path does not render (LetRec, TemporalFilter,
 BasicAgg, a FlatMap other than generate_series, any string function) raise
 `FusedUnsupported`; `render_dataflow` (runtime.py) then takes the host
-renderer. The multi-worker (mesh) mode is not ported yet.
+renderer.
+
+With a mesh (parallel/mesh.py) the tick runs on every worker of it at once
+(`mesh_tick`), each over its own hash shard of every state, and every batch
+headed for stateful-operator state is first exchanged to the worker owning
+its key hash (`_exchanged`): the SQL engine's multi-worker mode, where the
+JAX package runs the same emission under `shard_map`.
 """
 
 from __future__ import annotations
 
 import time as _time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -56,6 +62,7 @@ from ..ops.reduce import (
 )
 from ..ops.threshold import _multiplicity
 from ..ops.topk import distinct_keys, gather_with_total, negate, topk_select
+from ..parallel.devicemesh.exchange import exchange, mesh_tick, note_overflow_retry
 from ..repr.batch import PAD_TIME, UpdateBatch, bucket_cap, device_time_scalar
 from ..repr.hashing import PAD_HASH
 from . import plan as lir
@@ -85,6 +92,9 @@ class FusedCaps:
     """Static capacities for one dataflow (all powers of two).
 
     `scaled(k)` multiplies every capacity at once: the overflow-retry knob.
+    On a mesh these are per-worker capacities; `bucket` is the exchange's
+    per-destination bucket (0: equal to `delta`, which no send of one
+    worker's delta can overflow).
     """
 
     delta: int = 1 << 10  # per-source per-tick delta rows
@@ -92,6 +102,7 @@ class FusedCaps:
     groups: int = 1 << 13  # top accumulator-table level per reduce
     join_out: int = 1 << 12  # join output cap (largest level; see join_caps)
     gather: int = 1 << 12  # topk gathered group contents per level
+    bucket: int = 0  # exchange bucket per destination (0 = delta)
     levels: int = 3
     ratio: int = 8  # LSM merge-schedule ratio
     cap_ratio: int = 4  # per-level join-output taper
@@ -103,6 +114,7 @@ class FusedCaps:
             groups=self.groups * k,
             join_out=self.join_out * k,
             gather=self.gather * k,
+            bucket=self.bucket * k,
             levels=self.levels,
             ratio=self.ratio,
             cap_ratio=self.cap_ratio,
@@ -147,15 +159,24 @@ class _Ctx:
     errs: list
     overflow: list  # bool tensors
     memo: dict  # id(plan node) -> emitted UpdateBatch
+    comm: object = None  # the worker's WorkerComm on a mesh
 
 
 class FusedCompiler:
-    """Walks LIR plans; builds the state template and emits the tick."""
+    """Walks LIR plans; builds the state template and emits the tick.
 
-    def __init__(self, desc: lir.DataflowDescription, caps: FusedCaps, device="cuda"):
+    With `axis_name` set (a tick over a mesh of `n_shards` workers), every
+    batch headed for stateful-operator state is first exchanged to the
+    worker owning its key hash: exchange before the state is touched, never
+    after stateless MFPs."""
+
+    def __init__(self, desc: lir.DataflowDescription, caps: FusedCaps, device="cuda",
+                 axis_name: str | None = None, n_shards: int = 1):
         self.desc = desc
         self.caps = caps
         self.device = device
+        self.axis_name = axis_name
+        self.n_shards = n_shards
         self.dtypes: dict[str, tuple] = {
             sid: tuple(dts) for sid, dts in desc.source_imports.items()
         }
@@ -388,6 +409,16 @@ class FusedCompiler:
         ctx.overflow.append(merged.count() > out_cap)
         return merged.with_capacity(out_cap)
 
+    def _exchanged(self, keyed: UpdateBatch, ctx: _Ctx) -> UpdateBatch:
+        """Route a keyed batch to the worker owning its hash (a no-op off the
+        mesh): co-keyed rows meet before they probe or enter sharded state."""
+        if self.axis_name is None:
+            return keyed
+        bucket = self.caps.bucket or self.caps.delta
+        out, f = exchange(keyed, ctx.comm, self.n_shards, bucket)
+        ctx.overflow.append(f)
+        return consolidate(out, compact=False)
+
     def _emit_join(self, e: lir.Join, ctx: _Ctx) -> UpdateBatch:
         caps = self.caps
         kind, slots = self._emitters[id(e)]
@@ -398,8 +429,8 @@ class FusedCompiler:
                 lpath, rpath = slots[si]
                 L = ctx.state_in[lpath]
                 R = ctx.state_in[rpath]
-                dlk = arrange_batch(stream, st.stream_key)
-                drk = arrange_batch(deltas[si + 1], st.lookup_key)
+                dlk = self._exchanged(arrange_batch(stream, st.stream_key), ctx)
+                drk = self._exchanged(arrange_batch(deltas[si + 1], st.lookup_key), ctx)
                 outs, f1 = lsm_join(dlk, R, caps.join_caps(dlk.cap, R))
                 outs2, f2 = lsm_join(drk, L, caps.join_caps(drk.cap, L), swap=True)
                 total, dd = join_with_total(dlk, drk, caps.join_out)
@@ -418,7 +449,7 @@ class FusedCompiler:
             for k, path_stages in enumerate(e.plan.paths):
                 stream = deltas[k]
                 for st in path_stages:
-                    probe = arrange_batch(stream, st.stream_key)
+                    probe = self._exchanged(arrange_batch(stream, st.stream_key), ctx)
                     lsm = cur[(st.other_input, st.lookup_key)]
                     parts, f = lsm_join(probe, lsm, caps.join_caps(probe.cap, lsm))
                     ctx.overflow.append(f)
@@ -427,8 +458,9 @@ class FusedCompiler:
                 # publish input k's delta into its arrangements
                 for (inp, key), path in arrs.items():
                     if inp == k:
-                        newA, f = lsm_insert(cur[(inp, key)], arrange_batch(deltas[k], key),
-                                             ctx.time, caps.ratio, since=ctx.since)
+                        keyed = self._exchanged(arrange_batch(deltas[k], key), ctx)
+                        newA, f = lsm_insert(cur[(inp, key)], keyed, ctx.time, caps.ratio,
+                                             since=ctx.since)
                         ctx.overflow.append(f)
                         cur[(inp, key)] = newA
                         ctx.state_out[path] = newA
@@ -442,6 +474,8 @@ class FusedCompiler:
         _kind, path = self._emitters[id(e)]
         lsm: LsmAccums = ctx.state_in[path]
         inp = self._emit(e.input, ctx)
+        if self.axis_name is not None:
+            inp = self._exchanged(arrange_batch(inp, e.key_cols), ctx)
         raw, errs = _contributions(inp, e.key_cols, e.aggs)
         ctx.errs.append(errs)
         contrib = consolidate_accums(raw)
@@ -461,6 +495,8 @@ class FusedCompiler:
         _kind, path = self._emitters[id(e)]
         lsm: LsmAccums = ctx.state_in[path]
         inp = self._emit(e.input, ctx)
+        if self.axis_name is not None:
+            inp = self._exchanged(arrange_batch(inp, tuple(key_cols)), ctx)
         raw, _errs = _contributions(inp, tuple(key_cols), ())
         contrib = consolidate_accums(raw)
         _accs, old_n, missed = accum_lsm_lookup(lsm, contrib)
@@ -484,7 +520,8 @@ class FusedCompiler:
         caps = self.caps
         _kind, path = self._emitters[id(e)]
         lsm: LsmBatches = ctx.state_in[path]
-        keyed = arrange_batch(self._emit(e.input, ctx), e.plan.group_cols)
+        inp = self._emit(e.input, ctx)
+        keyed = self._exchanged(arrange_batch(inp, e.plan.group_cols), ctx)
         probes = distinct_keys(keyed)
         old_rows, f1 = _gather_lsm(probes, lsm, caps.gather, ctx.time)
         new_lsm, f2 = lsm_insert(lsm, keyed, ctx.time, caps.ratio, since=ctx.since)
@@ -511,6 +548,25 @@ def _gather_lsm(probes: UpdateBatch, lsm: LsmBatches, cap: int, time: int):
     for p in parts[1:]:
         acc = UpdateBatch.concat(acc, p)
     return consolidate(advance_times(acc, time)), overflow
+
+
+def _to(obj, device):
+    """A state object (batch, accumulator table, LSM) with its tensors on
+    `device` (the same tensors where they are there already)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(_to(x, device) for x in obj)
+    return type(obj)(**{f.name: _to(getattr(obj, f.name), device) for f in fields(obj)})
+
+
+def _joined(parts: list, device) -> UpdateBatch:
+    """The workers' batches concatenated in worker order on `device`
+    (`shard_map`'s P(axis) output)."""
+    acc = _to(parts[0], device)
+    for p in parts[1:]:
+        acc = UpdateBatch.concat(acc, _to(p, device))
+    return acc
 
 
 def _project_cols(batch: UpdateBatch, perm) -> UpdateBatch:
@@ -563,12 +619,25 @@ class FusedDataflow:
     batch is larger than the delta capacity, or operator logging is on)
     and the one stacked read of flags and counts at the end of each tick
     (the reduce's lookups count theirs in ops/reduce.py's HOST_SYNCS).
+
+    With `mesh` (a tuple of worker devices, parallel/mesh.py) the tick runs
+    on every worker at once (`mesh_tick`), and `state` is a tuple of one
+    state dict per worker, on that worker's device: the JAX package's global
+    state arrays split on axis 0. Each tick's source deltas are padded to
+    the global delta capacity (`n_shards` x the per-worker one) and cut by
+    position into one equal part per worker, so a small batch lands whole
+    on worker 0 and only the exchanges spread it. Outputs and errors are
+    joined in worker order on the dataflow's `device`, counts summed, and
+    any worker's overflow reruns the whole tick. A worker that raises ends
+    the tick and its error is raised.
     """
 
     def __init__(
         self,
         desc: lir.DataflowDescription,
         caps: Optional[FusedCaps] = None,
+        mesh=None,
+        axis_name: str = "workers",
         traces=None,
         operator_logging: bool = False,
         device="cuda",
@@ -586,6 +655,9 @@ class FusedDataflow:
         self.desc = desc
         self.caps = caps or FusedCaps()
         self.device = torch.device(device)
+        self.mesh = tuple(mesh) if mesh is not None else None
+        self.axis_name = axis_name
+        self.n_shards = len(self.mesh) if self.mesh is not None else 1
         self._scale = 1
         self._build()
         self.state = self._tiled_template()
@@ -614,15 +686,24 @@ class FusedDataflow:
 
     # -- build ----------------------------------------------------------------
     def _build(self) -> None:
-        self.compiler = FusedCompiler(self.desc, self.caps.scaled(self._scale), self.device)
+        on_mesh = self.mesh is not None
+        self.compiler = FusedCompiler(
+            self.desc, self.caps.scaled(self._scale),
+            self.mesh[0] if on_mesh else self.device,
+            axis_name=self.axis_name if on_mesh else None, n_shards=self.n_shards)
         self.consts: dict[str, lir.Constant] = {}
         for bd in self.desc.objects_to_build:
             _collect_constants(bd.plan, self.consts)
+        if on_mesh:
+            self._mesh_tick = mesh_tick(self._tick, self.mesh, self.axis_name)
 
-    def _tick(self, state: dict, deltas: dict, time: int, since: int):
+    def _tick(self, comm, state: dict, deltas: dict, time: int, since: int):
+        """One worker's tick (`comm` None off the mesh): (state', outs, errs,
+        [overflow, counts..., error count] stacked in one int64 tensor for
+        the tick's one read)."""
         ctx = _Ctx(
             state_in=state, state_out=dict(state), env=dict(deltas), time=time,
-            since=since, errs=[], overflow=[], memo={},
+            since=since, errs=[], overflow=[], memo={}, comm=comm,
         )
         outs = self.compiler.emit_tick(ctx)
         if ctx.errs:
@@ -639,11 +720,25 @@ class FusedDataflow:
                 ctx.overflow.append(err_over)
             errs = consolidate(errs)
         else:
-            errs = UpdateBatch.empty(8, (), torch_dtypes(ERR_DTYPES), self.device)
-        return ctx.state_out, outs, errs, ctx.overflow
+            dev = comm.device if comm is not None else self.device
+            errs = UpdateBatch.empty(8, (), torch_dtypes(ERR_DTYPES), dev)
+        over = torch.zeros((), dtype=torch.int64, device=errs.device)
+        if ctx.overflow:
+            over = torch.stack([f.reshape(()) for f in ctx.overflow]).any().to(torch.int64)
+        counts = [outs[bd.id].count() for bd in self.desc.objects_to_build]
+        return ctx.state_out, outs, errs, torch.stack([over, *counts, errs.count()])
 
-    def _tiled_template(self) -> dict:
-        return dict(self.compiler.state_template)
+    def _tiled_template(self):
+        """The empty state: a dict {path: LSM}, or on a mesh one such dict
+        per worker on its device (the template at per-worker capacities)."""
+        tmpl = dict(self.compiler.state_template)
+        if self.mesh is None:
+            return tmpl
+        return tuple({p: _to(st, dev) for p, st in tmpl.items()} for dev in self.mesh)
+
+    def worker_states(self) -> list:
+        """The state dicts, one per worker (one off the mesh)."""
+        return [self.state] if self.mesh is None else list(self.state)
 
     def ensure_delta_capacity(self, n_rows: int) -> None:
         """Grow capacities (and migrate state) until a tick of `n_rows`
@@ -657,20 +752,22 @@ class FusedDataflow:
         self._migrate_state()
 
     def _migrate_state(self) -> None:
-        """Pad existing state into the new (larger) capacity template."""
-        new_state = {}
-        for path, t in self._tiled_template().items():
-            cur = self.state.get(path)
-            if cur is None:
-                new_state[path] = t
-                continue
-            new_state[path] = type(t)(tuple(
-                have.with_capacity(want.cap) for have, want in zip(cur.levels, t.levels)
-            ))
-        self.state = new_state
+        """Pad existing state into the new (larger) capacity template. On a
+        mesh each worker's levels pad at their own tail, so live rows keep
+        their owning worker."""
+        tmpl = self._tiled_template()
+        grown = []
+        for cur, want in zip(self.worker_states(), [tmpl] if self.mesh is None else tmpl):
+            grown.append({
+                path: t if path not in cur else type(t)(tuple(
+                    have.with_capacity(w.cap) for have, w in zip(cur[path].levels, t.levels)))
+                for path, t in want.items()
+            })
+        self.state = grown[0] if self.mesh is None else tuple(grown)
 
     def _delta_cap(self) -> int:
-        return self.caps.scaled(self._scale).delta
+        """The global per-source delta capacity (n_shards x the per-worker one)."""
+        return self.caps.scaled(self._scale).delta * self.n_shards
 
     # -- drive --------------------------------------------------------------
     def step(self, tick: int, source_deltas: dict[str, UpdateBatch]) -> dict:
@@ -697,18 +794,28 @@ class FusedDataflow:
             deltas[cid] = self._const_delta(cid, c, tick, delta_cap)
 
         with _prof.annotate(f"mzt_fused_tick:{self._profile_name}"):
-            state2, outs, errs, overflow = self._tick(
-                self.state, deltas, device_time_scalar(tick), device_time_scalar(self.since))
-            # the tick's one device read: the overflow flag and the counts
-            flags = [torch.stack([f.reshape(()) for f in overflow]).any().to(torch.int64)] \
-                if overflow else []
-            counts = [outs[bd.id].count() for bd in self.desc.objects_to_build]
-            host = torch.stack(flags + counts + [errs.count()]).tolist()
+            t, since = device_time_scalar(tick), device_time_scalar(self.since)
+            if self.mesh is None:
+                state2, outs, errs, read = self._tick(None, self.state, deltas, t, since)
+            else:
+                from ..models.fused_q3 import split_batch
+
+                n = self.n_shards
+                parts = {k: split_batch(b, self.mesh) for k, b in deltas.items()}
+                per = self._mesh_tick(self.state,
+                                      [{k: p[w] for k, p in parts.items()} for w in range(n)],
+                                      (t,) * n, (since,) * n)
+                state2 = tuple(p[0] for p in per)
+                read = torch.stack([p[3].to(self.device) for p in per]).sum(0)
+            # the tick's one device read: the overflow flags and the counts
+            host = read.tolist()
             self.host_syncs += 1
-        over, counts = (bool(host[0]), host[1:]) if overflow else (False, host)
+        over, counts = bool(host[0]), host[1:]
         if over:
             # lossless retry: drop results, double capacities, re-run the
             # same tick from the unchanged pre-tick state
+            if self.mesh is not None:
+                note_overflow_retry()
             self.retries += 1
             self._elapsed_ns += _time.perf_counter_ns() - t0
             self._scale *= 2
@@ -719,6 +826,11 @@ class FusedDataflow:
         for cid, c in self.consts.items():
             if all(r[1] <= tick for r in c.rows):
                 self._emitted_consts.add(cid)
+        if self.mesh is not None:
+            # the workers' outputs joined in worker order, those read below
+            outs = {bd.id: _joined([p[1][bd.id] for p in per], self.device)
+                    for i, bd in enumerate(self.desc.objects_to_build) if counts[i] > 0}
+            errs = _joined([p[2] for p in per], self.device) if counts[-1] > 0 else None
 
         results: dict = {}
         err_delta = errs if counts[-1] > 0 else None
@@ -791,15 +903,19 @@ class FusedDataflow:
     def arrangement_info(self) -> list:
         """(object, operator, name, batches, capacity, live rows, bytes) of
         every state path and index spine. Bytes are the port's own: hashes
-        and times take 8 B a row here (4 B in the JAX package)."""
+        and times take 8 B a row here (4 B in the JAX package).
+        On a mesh each state path's row sums its workers' levels: the JAX
+        package's global arrays."""
         out = []
-        for path, st in self.state.items():
-            n = sum(int(b.count()) for b in st.levels)
-            cap = sum(b.cap for b in st.levels)
+        states = self.worker_states()
+        for path, st in states[0].items():
+            levels = [b for w in states for b in w[path].levels]
+            n = sum(int(b.count()) for b in levels)
+            cap = sum(b.cap for b in levels)
             if isinstance(st, LsmBatches):
-                nbytes = sum(batch_nbytes(b) for b in st.levels)
+                nbytes = sum(batch_nbytes(b) for b in levels)
             else:
-                nbytes = sum(accum_state_nbytes(a) for a in st.levels)
+                nbytes = sum(accum_state_nbytes(a) for a in levels)
             out.append(("fused", 0, path, len(st.levels), cap, n, nbytes))
         for kind, spines in (("index_trace", self.index_traces), ("index_errs", self.index_errs)):
             for idx_id, arr in spines.items():

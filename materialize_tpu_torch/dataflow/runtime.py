@@ -1509,23 +1509,24 @@ def render_dataflow(desc: lir.DataflowDescription, *, fused: bool = False,
                     snap_rows: int = 0, device="cuda"):
     """Render a DataflowDescription: the one rendering decision point.
 
-    The fused single-program renderer is tried when asked for, and the
-    host-orchestrated `Dataflow` takes every plan the fused renderer
-    refuses (FusedUnsupported), as in the reference; otherwise the plan
-    renders as a `Dataflow`. Both run on `device`. `snap_rows` pre-sizes
-    the fused renderer's delta capacity so a hydration tick does not climb
-    the doubling retries.
+    `exchange_backend` (host, device or auto) picks the exchange plane
+    through `devicemesh.resolve_exchange_mesh`: the worker mesh to run over
+    (`mesh`, or one over every CUDA device), or none. The fused renderer is
+    tried when asked for, or when the plane is `device` (the mesh exists
+    only inside the fused tick), and the host-orchestrated `Dataflow` takes
+    every plan the fused renderer refuses (FusedUnsupported), as in the
+    reference; otherwise the plan renders as a `Dataflow`. Both run on
+    `device`. `snap_rows` pre-sizes the fused renderer's delta capacity so
+    a hydration tick does not climb the doubling retries.
     """
-    if exchange_backend == "device" or mesh is not None:
-        raise NotImplementedError(
-            f"render_dataflow(exchange_backend={exchange_backend!r}, mesh=...): only the "
-            "host exchange is ported; the device exchange plane needs FusedDataflow's "
-            "mesh mode (dataflow/fused.py), which is not ported yet")
-    if fused:
+    from ..parallel.devicemesh import resolve_exchange_mesh
+
+    dmesh = resolve_exchange_mesh(exchange_backend, mesh, device)
+    if fused or exchange_backend == "device":
         from .fused import FusedDataflow, FusedUnsupported
 
         try:
-            df = FusedDataflow(desc, caps=caps, traces=traces,
+            df = FusedDataflow(desc, caps=caps, mesh=dmesh, traces=traces,
                                operator_logging=operator_logging, device=device)
             if snap_rows:
                 df.ensure_delta_capacity(int(snap_rows))

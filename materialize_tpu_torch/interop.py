@@ -14,6 +14,8 @@ imports JAX: the caller flattens the JAX side itself
 A mesh-sharded JAX state is one global pytree whose every leaf is split on
 axis 0 into equal parts, one per device; `split_leaves` cuts such leaves
 into one list per worker, and `join_leaves` puts per-worker lists back.
+`fused_state_leaves` and `load_fused_state` carry a `FusedDataflow`'s state
+either way, on a mesh or off it.
 
 `load_dataflow(dst, src)` carries the state of a host-rendered JAX
 `runtime.Dataflow` into a port `Dataflow` rendered from the same
@@ -162,6 +164,26 @@ def split_leaves(arrays, n: int) -> list[list[np.ndarray]]:
 def join_leaves(parts) -> list[np.ndarray]:
     """One list of leaves per worker -> the global leaves (axis 0)."""
     return [np.concatenate(ws) for ws in zip(*parts)]
+
+
+def fused_state_leaves(df) -> list[np.ndarray]:
+    """A port `FusedDataflow`'s state as the JAX package's leaves: on a mesh
+    the workers' leaves joined on axis 0 (the JAX global arrays)."""
+    if df.mesh is None:
+        return to_numpy(df.state)
+    return join_leaves([to_numpy(s) for s in df.state])
+
+
+def load_fused_state(df, leaves) -> None:
+    """Set port `FusedDataflow` `df`'s state, at its current scale, from a
+    JAX `FusedDataflow`'s state leaves; on a mesh they split on axis 0
+    into the workers' states, each on its worker's device."""
+    tmpl = df._tiled_template()
+    if df.mesh is None:
+        df.state = from_numpy(tmpl, leaves, device=df.device)
+        return
+    parts = split_leaves(leaves, df.n_shards)
+    df.state = tuple(from_numpy(t, p, device=d) for t, p, d in zip(tmpl, parts, df.mesh))
 
 
 def _tensor(a, u32: bool, device) -> torch.Tensor:

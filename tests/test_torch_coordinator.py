@@ -14,16 +14,28 @@ report the same `trace_manager.sharing_rows()`, exactly. Q3's view is also
 held against `q3_oracle` over the generator's host rows, as
 tests/test_models.py does for the JAX package. The statements the port
 does not serve yet must raise NotImplementedError naming their module.
+
+A second script runs a Q3-shaped view through the fused renderer on a
+4-worker mesh (`Coordinator(mesh=...)`: the port's on 4 CPU workers, the
+JAX package's over 4 of the conftest's 8 CPU devices) with churn, and flips
+`exchange_backend` from device to host between two views: the first
+renders on 4 workers, the second on one.
 """
 
 import tracemalloc
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from materialize_tpu.adapter import Coordinator as JCoord
+from materialize_tpu.dataflow import fused as JF
+from materialize_tpu.parallel import make_mesh as jax_mesh
 from materialize_tpu_torch.adapter import Coordinator as TCoord
+from materialize_tpu_torch.dataflow.fused import FusedDataflow
+from materialize_tpu_torch.parallel.mesh import make_mesh
 from materialize_tpu_torch.models import tpch as TT
 
 torch.set_num_threads(1)
@@ -117,6 +129,41 @@ TPCH = [
 SCRIPTS = {"tables": TABLES, "tpch": TPCH}
 
 
+def _mesh_script(seed: int = 23) -> list[str]:
+    """A Q3-shaped view (tests/test_parallel.py's) rendered on the mesh,
+    seeded inserts with three churn DELETEs, then a second view rendered
+    after the flip to the host exchange."""
+    rng = np.random.default_rng(seed)
+    out = [
+        "ALTER SYSTEM SET enable_fused_render = true",
+        "ALTER SYSTEM SET exchange_backend = device",
+        "CREATE TABLE c (ck int, seg int)",
+        "CREATE TABLE o (ok int, ck int, od int)",
+        "CREATE TABLE l (lk int, price int)",
+        "CREATE MATERIALIZED VIEW q3 AS SELECT o.ok, sum(l.price), count(*) "
+        "FROM c, o, l WHERE c.ck = o.ck AND o.ok = l.lk AND c.seg = 1 "
+        "AND o.od < 50 GROUP BY o.ok",
+    ]
+    for i in range(5):
+        out += [
+            f"INSERT INTO c VALUES ({i}, {int(rng.integers(2))})",
+            f"INSERT INTO o VALUES ({i * 10}, {int(rng.integers(5))}, {int(rng.integers(100))})",
+            f"INSERT INTO l VALUES ({int(rng.integers(5)) * 10}, {int(rng.integers(500))}), "
+            f"({int(rng.integers(5)) * 10}, {int(rng.integers(500))})",
+        ]
+        if i >= 2:
+            out.append(f"DELETE FROM l WHERE lk = {int(rng.integers(5)) * 10}")
+        out.append("SELECT * FROM q3")
+    return out + [
+        "ALTER SYSTEM SET exchange_backend = host",
+        "CREATE MATERIALIZED VIEW per_ck AS SELECT ck, count(*) FROM o GROUP BY ck",
+        "DELETE FROM o WHERE ck = 1",
+        "INSERT INTO o VALUES (70, 2, 10)",
+        "SELECT * FROM q3",
+        "SELECT * FROM per_ck",
+    ]
+
+
 def _storage(c) -> dict:
     ts = c.oracle.read_ts()
     out = {}
@@ -148,6 +195,39 @@ def _trace(c, script) -> list:
         res = _run(c, stmt)
         out.append((stmt, res, _storage(c), c.trace_manager.sharing_rows()))
     return out
+
+
+def test_mesh_script_matches_reference(monkeypatch):
+    """The mesh script through both packages' coordinators on a 4-worker
+    mesh: every statement's result, storage contents and sharing rows
+    equal; the first view's dataflow a FusedDataflow on 4 workers in both,
+    the second's (rendered after the flip to host) on one."""
+    # the JAX view's state placed as its tick's outputs are, from the start,
+    # so that the mesh tick compiles once, not once more at the first write
+    # (test time; placement only)
+    init = JF.FusedDataflow.__init__
+
+    def placed_init(self, *a, **k):
+        init(self, *a, **k)
+        if self.mesh is not None:
+            self.state = jax.device_put(
+                self.state, NamedSharding(self.mesh, PartitionSpec(self.axis_name)))
+
+    monkeypatch.setattr(JF.FusedDataflow, "__init__", placed_init)
+    script = _mesh_script()
+    j = JCoord(mesh=jax_mesh(4))
+    jt = _trace(j, script)
+    t = TCoord(mesh=make_mesh(4, "cpu"), device="cpu")
+    tt = _trace(t, script)
+    for n, (jrow, trow) in enumerate(zip(jt, tt)):
+        assert trow[1:] == jrow[1:], (n, jrow[0], jrow[1], trow[1])
+    assert not [r for _s, r, _x, _y in tt if r[0] == "error"]
+    assert [r for s, r, _x, _y in tt if s == "SELECT * FROM q3"][-1][2]
+    for c in (j, t):
+        dfs = [df for _g, df, _s in c.dataflows]
+        assert [type(df).__name__ for df in dfs] == ["FusedDataflow"] * 2
+        assert [df.n_shards for df in dfs] == [4, 1]
+    assert isinstance(t.dataflows[0][1], FusedDataflow)
 
 
 def test_script_matches_reference():
@@ -197,7 +277,6 @@ def test_script_matches_reference():
     c.execute("CREATE MATERIALIZED VIEW m AS SELECT a FROM t")
     cases = [
         (lambda: TCoord(data_dir="x", device="cpu"), "persist/"),
-        (lambda: TCoord(mesh=object(), device="cpu"), "mesh mode"),
         (lambda: c.execute("SUBSCRIBE m"), "egress/"),
         (lambda: c.execute("CREATE SINK k FROM m INTO FILE 'p' FORMAT JSON"), "egress/"),
         (lambda: c.execute("CREATE SOURCE f (a int) FROM FILE 'p' (FORMAT JSON)"),
@@ -206,7 +285,6 @@ def test_script_matches_reference():
          "storage/upsert.py"),
         (lambda: c.execute("SELECT * FROM mz_tables"), "adapter/introspection.py"),
         (lambda: c.execute("SET kernel_backend = 'pallas'"), "kernel registry"),
-        (lambda: c.execute("SET exchange_backend = 'device'"), "mesh mode"),
         (lambda: c.execute("SET enable_jax_profiler = true"), "profiler"),
         (lambda: c.checkpoint(), "persist/"),
         (lambda: c.catch_up(), "persist/"),
@@ -218,4 +296,8 @@ def test_script_matches_reference():
     for fn, module in cases:
         with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
             fn()
+    # the mesh mode is served: a mesh is kept and the device exchange is a
+    # valid setting (the mesh script above runs both)
+    assert TCoord(mesh=make_mesh(2, "cpu"), device="cpu").mesh == make_mesh(2, "cpu")
+    assert c.execute("SET exchange_backend = 'device'").status == "SET"
     assert c.execute("SET kernel_backend = 'auto'").status == "SET"

@@ -327,3 +327,58 @@ def test_cuda_host_renderer_every_node_kind_equals_cpu(cuda_device):
     tick, with probe, probe2, multi_take and run_sum launched."""
     out = _chip_smoke().run_node_cases(cuda_device)
     assert "LetRecNode" in out["node_kinds"] and "DeltaJoinNode" in out["node_kinds"]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mesh_equals_cpu_mesh(cuda_device):
+    """Config 2 (auctions join bids) through FusedDataflow on a 2-worker mesh
+    on `cuda:0` and on a 2-worker CPU mesh, with retractions from tick 3 on:
+    every tick's outputs, each worker's state leaves and the retries must be
+    equal, and the card's ticks must have launched route_dest and
+    bucket_rank (the exchange) beside the four kernels of the operators."""
+    from materialize_tpu_torch import interop
+    from materialize_tpu_torch.dataflow.fused import FusedCaps, FusedDataflow
+    from materialize_tpu_torch.models.auction import auctions_join_bids
+    from materialize_tpu_torch.parallel.mesh import make_mesh
+    from materialize_tpu_torch.repr.batch import UpdateBatch
+    from materialize_tpu_torch.storage import AuctionGenerator
+
+    caps = FusedCaps(delta=256, arrangement=1 << 13, groups=1 << 12, join_out=1 << 10,
+                     gather=1 << 11, ratio=2)
+    gen = AuctionGenerator(7, 16, device="cpu", keep_host=True)
+    meshes = {"cpu": make_mesh(2, "cpu"), "cuda": make_mesh(2, torch.device("cuda", 0))}
+    dfs = {d: FusedDataflow(auctions_join_bids(), caps, mesh=m, device=m[0])
+           for d, m in meshes.items()}
+    registry.reset_launches()
+    for tick in range(1, 9):
+        gen.next_tick(tick, 300)
+        bids, diffs = gen.host["bids"][-1], np.ones(300, dtype=np.int64)
+        if tick >= 3:  # retract 60 bids of two ticks before
+            old = tuple(c[:60] for c in gen.host["bids"][tick - 3])
+            bids = tuple(np.concatenate([c, o]) for c, o in zip(bids, old))
+            diffs = np.concatenate([diffs, -np.ones(60, dtype=np.int64)])
+        auctions = gen.host["auctions"][-1]
+        res = {}
+        for d, df in dfs.items():
+            dev = meshes[d][0]
+            res[d] = df.step(tick, {
+                "bids": UpdateBatch.build((), bids, np.full(len(diffs), tick), diffs, device=dev),
+                "auctions": UpdateBatch.build((), auctions, np.full(16, tick), np.ones(16, np.int64),
+                                              device=dev),
+            })
+        assert set(res["cpu"]) == set(res["cuda"])
+        for obj, want in res["cpu"].items():
+            got = res["cuda"][obj]
+            assert (want is None) == (got is None), (tick, obj)
+            for w, g in zip(want or (), got or ()):
+                assert (w is None) == (g is None), (tick, obj)
+                if w is not None:
+                    for a, b in zip(interop.to_numpy(w), interop.to_numpy(g)):
+                        assert a.tobytes() == b.tobytes(), (tick, obj)
+        for a, b in zip(interop.fused_state_leaves(dfs["cpu"]),
+                        interop.fused_state_leaves(dfs["cuda"])):
+            assert a.tobytes() == b.tobytes(), tick
+        assert dfs["cpu"].retries == dfs["cuda"].retries
+    assert dfs["cpu"].peek("idx_join") == dfs["cuda"].peek("idx_join")
+    for k in registry.KERNELS:
+        assert registry.LAUNCHES[k] > 0, k

@@ -16,7 +16,17 @@ cancel +/- pairs; every case then carries the JAX state after tick 3 (the
 state dict, the index spines and the scale) into a fresh port dataflow,
 which continues identically. Each case runs its own JAX reference: under
 xdist a module-scoped fixture would be rebuilt in every worker.
+
+Each config also runs on a 4-worker mesh: the port's `FusedDataflow(mesh=
+make_mesh(4, "cpu"))` against the JAX one over 4 of the conftest's 8 CPU
+devices, at the same per-worker caps. Every worker's state leaves must equal
+its part of the JAX global arrays. Config 1 runs there with exchange buckets
+of 16 rows: a tick's rows all sit on worker 0 (deltas split by position), so
+it sends more than 16 to some worker and the tick reruns once, with doubled
+caps; the retries and `mzt_device_exchange_retries_total` must agree.
 """
+
+import importlib
 
 import tracemalloc
 
@@ -25,12 +35,14 @@ import pytest
 import torch
 
 import jax
+from jax.sharding import NamedSharding, PartitionSpec
 
 from materialize_tpu.dataflow import fused as JF
 from materialize_tpu.dataflow import plan as jlir
 from materialize_tpu.expr import Column as JColumn
 from materialize_tpu.models import auction as JA
 from materialize_tpu.ops.reduce import AggregateExpr as JAgg
+from materialize_tpu.parallel import make_mesh as jax_mesh
 from materialize_tpu.repr import UpdateBatch as JB
 from materialize_tpu.storage.generator import AuctionGenerator as JGen
 from materialize_tpu_torch import interop
@@ -39,6 +51,8 @@ from materialize_tpu_torch.dataflow import plan as tlir
 from materialize_tpu_torch.expr import Column as TColumn
 from materialize_tpu_torch.models import auction as TA
 from materialize_tpu_torch.ops.reduce import AggregateExpr as TAgg
+from materialize_tpu_torch.parallel.devicemesh import overflow_retries
+from materialize_tpu_torch.parallel.mesh import make_mesh
 from materialize_tpu_torch.repr.batch import UpdateBatch as TB
 from materialize_tpu_torch.storage import AuctionGenerator as TGen
 
@@ -66,6 +80,34 @@ CAPS = {
     "auctions_join_bids": {**SMALL, "join_out": 32},
     "max_bid_per_auction": SMALL,
 }
+N_MESH = 4
+# on the mesh config 1's buckets hold 16 rows: the exchange overflows once
+# (32 rows fit after the retry)
+MESH_CAPS = {"bids_sum_count": {"bucket": 16}}
+
+
+@pytest.fixture
+def jax_mesh_state_placed(monkeypatch):
+    """Place a JAX mesh dataflow's state as its tick's outputs are placed,
+    when it is made and after every growth, so that the tick compiles once a
+    scale and not once more at the next tick (test time; placement only)."""
+    init, migrate = JF.FusedDataflow.__init__, JF.FusedDataflow._migrate_state
+
+    def place(df):
+        if df.mesh is not None:
+            df.state = jax.device_put(df.state,
+                                      NamedSharding(df.mesh, PartitionSpec(df.axis_name)))
+
+    def placed_init(self, *a, **k):
+        init(self, *a, **k)
+        place(self)
+
+    def placed_migrate(self):
+        migrate(self)
+        place(self)
+
+    monkeypatch.setattr(JF.FusedDataflow, "__init__", placed_init)
+    monkeypatch.setattr(JF.FusedDataflow, "_migrate_state", placed_migrate)
 
 
 def auction_inputs(seed: int = 3) -> list:
@@ -114,9 +156,16 @@ def _index_id(desc) -> str:
     return next(iter(desc.index_exports))
 
 
-def run_jax(desc, caps: dict, inputs: list, compact=None) -> list:
+def _jax_retries() -> float:
+    """mzt_device_exchange_retries_total of the JAX package."""
+    jx = importlib.import_module("materialize_tpu.parallel.devicemesh.exchange")
+    return jx._RETRIES.value()
+
+
+def run_jax(desc, caps: dict, inputs: list, compact=None, n_shards: int = 1) -> list:
     """The JAX dataflow's ticks; per tick what the port is held against."""
-    df = JF.FusedDataflow(desc, JF.FusedCaps(**caps), operator_logging=True)
+    mesh = jax_mesh(n_shards) if n_shards > 1 else None
+    df = JF.FusedDataflow(desc, JF.FusedCaps(**caps), mesh=mesh, operator_logging=True)
     sources = list(desc.source_imports)
     run = []
     for tick, inp in zip(TICKS, inputs):
@@ -155,21 +204,31 @@ def check_tick(df, res: dict, want: dict, what: str) -> None:
             else:
                 _assert_leaves(w, g, f"{what} {k} {'oks' if part == 0 else 'errs'}")
     assert (df.retries, df._scale) == (want["retries"], want["scale"]), what
-    _assert_leaves(want["state"], df.state, f"{what} state")
+    if df.mesh is None:
+        _assert_leaves(want["state"], df.state, f"{what} state")
+    else:
+        for w, part in enumerate(interop.split_leaves(want["state"], df.n_shards)):
+            _assert_leaves(part, df.state[w], f"{what} state of worker {w}")
     assert {i: df.peek(i) for i in df.index_traces} == want["peek"], what
     assert df.operator_rates() == want["rates"], what
     assert [r[:-1] for r in df.arrangement_info()] == want["info"], what
 
 
-def carry_from_jax(desc, caps: dict, want: dict):
+def port_dataflow(desc, caps: dict, n_shards: int):
+    mesh = make_mesh(n_shards, "cpu") if n_shards > 1 else None
+    return TF.FusedDataflow(desc, TF.FusedCaps(**caps), mesh=mesh, operator_logging=True,
+                            device="cpu")
+
+
+def carry_from_jax(desc, caps: dict, want: dict, n_shards: int):
     """A fresh port dataflow holding the JAX dataflow's state after a tick:
-    the scale, the state dict, the index spines, the frontier, since and
-    the operator counters."""
-    df = TF.FusedDataflow(desc, TF.FusedCaps(**caps), operator_logging=True, device="cpu")
+    the scale, the state (split over the workers on a mesh), the index
+    spines, the frontier, since and the operator counters."""
+    df = port_dataflow(desc, caps, n_shards)
     (_f, _o, _n, df._rows_in, df._rows_out, df.retries), = want["rates"]
     df._scale = want["scale"]
     df._build()
-    df.state = interop.from_numpy(df._tiled_template(), want["state"], device="cpu")
+    interop.load_fused_state(df, want["state"])
     for idx_id, arr in df.index_traces.items():
         arr.batches = [
             interop.from_numpy(
@@ -189,44 +248,51 @@ def carry_from_jax(desc, caps: dict, want: dict):
     return df
 
 
+@pytest.mark.parametrize("n_shards", [1, N_MESH])
 @pytest.mark.parametrize("config", ["bids_sum_count", "auctions_join_bids",
                                     "max_bid_per_auction"])
-def test_auction_config_byte_identical_to_jax(config):
+def test_auction_config_byte_identical_to_jax(config, n_shards, jax_mesh_state_placed):
     inputs = auction_inputs()
-    caps = CAPS[config]
+    what = f"{config} on {n_shards} workers,"
+    caps = {**CAPS[config], **(MESH_CAPS.get(config, {}) if n_shards > 1 else {})}
     compact = COMPACT.get(config)
-    want = run_jax(getattr(JA, config)(), caps, inputs, compact)
+    jax_retries0, retries0 = _jax_retries(), overflow_retries()
+    want = run_jax(getattr(JA, config)(), caps, inputs, compact, n_shards)
+    jax_retries = _jax_retries() - jax_retries0
 
     desc = getattr(TA, config)()
     sources = list(desc.source_imports)
-    df = TF.FusedDataflow(desc, TF.FusedCaps(**caps), operator_logging=True, device="cpu")
+    df = port_dataflow(desc, caps, n_shards)
     for i, (tick, inp) in enumerate(zip(TICKS, inputs)):
         res = df.step(tick, _batches(inp, sources, lambda *a: TB.build(*a, device="cpu")))
         if compact and tick == compact[0]:
             df.compact(compact[1])
-        check_tick(df, res, want[i], f"{config} tick {tick}")
+        check_tick(df, res, want[i], f"{what} tick {tick}")
 
     # the view is right, not only equal: a NumPy oracle over the input
     assert df.peek(_index_id(desc)) == oracle(config, inputs)
-    if config == "auctions_join_bids":
+    if config == "auctions_join_bids" and n_shards == 1:
         assert want[0]["retries"] == 1 and want[-1]["scale"] == 2
+    # on the mesh every retry is an overflow retry, counted in both metrics
+    assert overflow_retries() - retries0 == (df.retries if n_shards > 1 else 0) == jax_retries
+    if n_shards > 1 and "bucket" in caps:
+        assert want[0]["retries"] == 1
     if compact:
         # +/- pairs of a bid at two times cancel only once a merge advanced
         # both times to `since`: the topk arrangement holds fewer rows than
         # were ever inserted and retracted
-        (path,) = df.state
-        n_rows = sum(int(b.count()) for b in df.state[path].levels)
+        (n_rows,) = [r[5] for r in df.arrangement_info() if r[0] == "fused"]
         assert n_rows < sum(len(inp["bids"][2]) for inp in inputs)
 
     # the JAX state after CARRY_AFTER, carried across, continues identically
-    df = carry_from_jax(desc, caps, want[CARRY_AFTER - 1])
+    df = carry_from_jax(desc, caps, want[CARRY_AFTER - 1], n_shards)
     for i, (tick, inp) in enumerate(zip(TICKS, inputs)):
         if tick <= CARRY_AFTER:
             continue
         res = df.step(tick, _batches(inp, sources, lambda *a: TB.build(*a, device="cpu")))
         if compact and tick == compact[0]:
             df.compact(compact[1])
-        check_tick(df, res, want[i], f"{config} carried, tick {tick}")
+        check_tick(df, res, want[i], f"{what} carried, tick {tick}")
 
 
 def oracle(config: str, inputs: list) -> list:

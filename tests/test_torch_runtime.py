@@ -34,9 +34,11 @@ from materialize_tpu.models import tpch as JT
 from materialize_tpu.repr import UpdateBatch as JB
 from materialize_tpu.storage.generator import TpchGenerator as JGen
 from materialize_tpu_torch import interop
+from materialize_tpu_torch.dataflow import fused as TF
 from materialize_tpu_torch.dataflow import runtime as TR
 from materialize_tpu_torch.models import operators as OPS
 from materialize_tpu_torch.models import tpch as TT
+from materialize_tpu_torch.parallel.mesh import make_mesh
 from materialize_tpu_torch.repr.batch import UpdateBatch as TB
 from materialize_tpu_torch.storage import TpchGenerator as TGen
 
@@ -247,10 +249,17 @@ def test_q3_default_renderer_byte_identical_and_oracle():
 
 def test_render_dataflow_refuses_what_is_not_ported():
     desc = OPS.relational_desc()
-    with pytest.raises(NotImplementedError, match="mesh mode"):
-        TR.render_dataflow(desc, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh mode"):
+    # the device exchange plane is served: a mesh given renders the fused
+    # dataflow over its workers, under auto with fused asked for, and under
+    # device by itself; without a mesh on the CPU, device forms none (it
+    # never falls back to the CPU)
+    mesh = make_mesh(2, "cpu")
+    for kw in ({"fused": True}, {"exchange_backend": "device"}):
+        df = TR.render_dataflow(desc, mesh=mesh, device="cpu", **kw)
+        assert isinstance(df, TF.FusedDataflow) and df.n_shards == 2 and df.mesh == mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.render_dataflow(desc, exchange_backend="device", device="cpu")
+    # what stays unported: the host-staged exchange plane between processes
     with pytest.raises(NotImplementedError, match="netexchange"):
         TR.Dataflow(desc, shard=object(), device="cpu")
     # the fused renderer refuses the basic aggregates: the host renderer takes it
